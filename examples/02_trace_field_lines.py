@@ -13,6 +13,7 @@ Run with `python examples/02_trace_field_lines.py`.
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -88,9 +89,10 @@ def main():
 
     # Export the grid (with the field) and the traced polylines for
     # side-by-side visualization.
-    iu.write_vtk(grid, "/tmp/trace_example_grid.vtu")
-    iu.write_trace_vtk(result, "/tmp/trace_example_lines.vtu")
-    print("wrote /tmp/trace_example_grid.vtu + /tmp/trace_example_lines.vtu")
+    out = tempfile.mkdtemp(prefix="trace_example")
+    iu.write_vtk(grid, os.path.join(out, "grid.vtu"))
+    iu.write_trace_vtk(result, os.path.join(out, "lines.vtu"))
+    print(f"wrote {out}/grid.vtu + {out}/lines.vtu")
 
 
 if __name__ == "__main__":

@@ -1,25 +1,34 @@
 """Multi-device query sharding: grid replicated, query batch sharded.
 
-The grid (small relative to HBM) is replicated on every device of a 1-D
-`jax.sharding.Mesh`; the query batch is sharded over the devices and
-interpolated with a `shard_map`-wrapped kernel — no collectives in the
-hot loop (SURVEY.md §5.8).  On real hardware this runs over TPU chips;
-here it demonstrates the same code on a virtual 8-device CPU mesh.
+The grid is replicated on every device of a 1-D `jax.sharding.Mesh`;
+the query batch is sharded over the devices and interpolated with a
+`shard_map`-wrapped kernel — no collectives in the hot loop
+(SURVEY.md §5.8).  It shards over the devices present (the GPUs of the
+machine); with `--cpu-devices N` it runs on N virtual CPU devices
+instead, for a machine without a GPU.
 
-Run with `python examples/03_sharded_queries.py`.
+Run with `python examples/03_sharded_queries.py [--cpu-devices 8]`.
 """
 
+import argparse
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-os.environ["JAX_PLATFORMS"] = "cpu"
+_ap = argparse.ArgumentParser()
+_ap.add_argument("--cpu-devices", type=int, default=0,
+                 help="run on this many virtual CPU devices instead")
+ARGS = _ap.parse_args()
+if ARGS.cpu_devices:
+    # must precede JAX's backend initialization
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "")
+        + f" --xla_force_host_platform_device_count={ARGS.cpu_devices}"
+    )
+    os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax.numpy as jnp

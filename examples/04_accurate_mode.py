@@ -1,7 +1,6 @@
-"""Accurate mode: float64-grade interpolation at float32 speed.
+"""Accurate mode: float64-grade interpolation from float32 storage.
 
-TPU float64 is software-emulated (~100x slower); the compensated-f32
-path stores each value as an exact (hi, lo) float32 pair and runs
+The compensated-f32 path stores each value as an exact (hi, lo) float32 pair and runs
 error-free-transform arithmetic, recovering ~1e-12 accuracy from pure
 f32 storage and compute.  This example builds an f32 grid whose
 coordinates and data genuinely need the residuals (scaled by pi,

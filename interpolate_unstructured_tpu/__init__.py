@@ -1,11 +1,11 @@
-"""interpolate_unstructured_tpu — TPU-native unstructured-grid
-interpolation and field-line tracing.
+"""interpolate_unstructured_tpu — batched unstructured-grid
+interpolation and field-line tracing in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 jannisteunissen/interpolate_unstructured (reference surveyed in
 SURVEY.md): efficient interpolation of point/cell data on unstructured
 grids (triangles, quads, tetrahedra) plus an adaptive field-line tracer —
-batch-first, SoA, fixed-shape, shardable over TPU meshes.
+batch-first, SoA, fixed-shape, shardable over device meshes.
 
 Public API mirrors the reference's ``iu_*`` surface
 (m_interp_unstructured.f90:77-101) in functional, batched form.

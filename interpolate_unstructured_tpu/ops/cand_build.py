@@ -3,10 +3,9 @@
 Builds the same per-bin candidate lists as
 :func:`..ops.geometry.build_candidate_bins` (the host reference
 implementation) but on the accelerator: the host pair-expansion loop is
-~150 s for a 1M-cell tet mesh on this container's single throttled
-core, while the device pipeline — offset-unrolled AABB/face filtering,
-one stable multi-key sort, a cummax segment scan, and two scatters —
-measures ~3 s end-to-end on a v5e chip.
+~150 s for a 1M-cell tet mesh on one CPU core, while the device
+pipeline is offset-unrolled AABB/face filtering, one stable multi-key
+sort, a cummax segment scan, and two scatters.
 
 Pair generation is restructured for fixed shapes: instead of expanding
 a ragged (cell, bin) pair list, the kernel loops over the static grid
@@ -66,9 +65,9 @@ def _gen_pairs(
     nbx, nby, nbz = bin_shape
     dtype = normals.dtype
     # reach[f] = max |n_f . (x - bin_center)| over the bin box.
-    # Elementwise multiply-reduce, NOT a matmul: on TPU the default
-    # matmul precision is bfloat16, whose ~4e-3 relative error dwarfs
-    # the eps separation guard and could drop overlapping pairs.
+    # Elementwise multiply-reduce, NOT a matmul: a reduced-precision
+    # matmul pass (TF32 keeps ~1e-3 relative) would dwarf the eps
+    # separation guard and could drop overlapping pairs.
     n_abs = jnp.abs(normals)
     reach = (
         n_abs[:, :, 0] * half[0]

@@ -1,13 +1,12 @@
 """Double-float (compensated f32) arithmetic for the accurate
 interpolation mode.
 
-TPU float64 is software-emulated and ~100x slower than f32 end to end
-(benchmarks/RESULTS.md), so the fast path runs float32 and tops out
-near 1e-6 absolute error.  This module provides the classic
+The float32 fast path tops out near 1e-6 absolute error.  This module
+provides the classic
 error-free-transform arithmetic (Dekker 1971, Knuth TAOCP 4.2.2) on
 *pairs* of f32 arrays — a value is represented as ``hi + lo`` with
 ``|lo| <= ulp(hi)/2`` — giving ~48 effective mantissa bits (~1e-14
-relative) at a handful of native f32 VPU ops per operation.  It is the
+relative) at a handful of native f32 ops per operation.  It is the
 numeric core of :mod:`.interp_acc`, which bridges the gap between the
 f32 fast path and the f64 reference contract (SURVEY.md §7 "hard
 parts": a compensated-f32 middle path).

@@ -117,7 +117,7 @@ def build_bin_seed_table(
 
     This replaces the reference's kd-tree cold start
     (find_nearby_cell_kdtree, m_interp_unstructured.f90:272-288) with a
-    TPU-friendly O(1) gather: ``seed = table[bin_of(r)]``.  The contract
+    batch-friendly O(1) gather: ``seed = table[bin_of(r)]``.  The contract
     only requires a *nearby* cell (README.md:5-6) since the neighbor walk
     corrects the rest.
 
@@ -242,7 +242,7 @@ def build_candidate_bins(
     This is the build side of the one-gather cold locate: at query time
     the bin of ``r`` is inspected and containment is tested against the
     bin's (at most ``k_max``) candidate cells directly, so most cold
-    queries resolve with ZERO walk steps — the TPU replacement for the
+    queries resolve with ZERO walk steps — the batched replacement for the
     reference's kd-tree-seed-then-walk cold path (README.md:3-6,
     m_interp_unstructured.f90:272-288 + :664-725).
 

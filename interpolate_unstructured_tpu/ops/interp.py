@@ -28,15 +28,14 @@ from jax import lax
 
 from . import locate
 
-# Full input-precision contractions (TPU matmul defaults to bfloat16)
+# Full input-precision contractions (no reduced-precision matmul
+# passes such as TF32)
 _PRECISION = lax.Precision.HIGHEST
 
 
 def _vq_components(cell_points, r, npc):
     """(B, npc, 3) vertices + (B, 3) query -> per-component lists for
-    the shared weight kernels (ops/wkern.py).  Component slices are
-    elementwise-identical math and avoid lane-padded (B, 3) minor-dim
-    ops on TPU."""
+    the shared weight kernels (ops/wkern.py)."""
     v = [[cell_points[:, k, d] for d in range(3)] for k in range(npc)]
     q = [r[:, d] for d in range(3)]
     return v, q
@@ -72,7 +71,7 @@ def quad_weights(cell_points, r):
     assumed planar with its plane parallel to z (cross_product_z, :653).
     The arithmetic — root choice, linear fallback, maxloc, degenerate
     guard — is the SINGLE shared definition in ops/wkern.py, used by
-    every path (XLA, Pallas, df32) by construction.
+    every path (plain and df32) by construction.
     """
     from . import wkern
 
@@ -108,9 +107,8 @@ def cell_weights(grid, r, i_cell):
 def _onehot_gather(table, ic):
     """Row gather as a one-hot matmul: (C, K), (B,) -> (B, K).
 
-    TPU per-row gathers run ~50x slower than an MXU matmul of the same
-    shape; each one-hot row has a single 1.0, so the contraction is the
-    exact row value (no rounding: 1*v plus zeros).
+    Each one-hot row has a single 1.0, so the contraction is the exact
+    row value (no rounding: 1*v plus zeros) at HIGHEST precision.
     """
     c = table.shape[0]
     onehot = (
@@ -197,8 +195,8 @@ def interpolate_at_icell(grid, r, i_vars, i_cell):
     k_cols = npc * 3 + 1 + npc * v
     if b * 4 >= n_cells and k_cols <= row_width:
         # Big batch: assemble a per-call fused row table on device
-        # (vertex coords | volume | vertex data) padded to the 512-byte
-        # fast-gather width — ONE row gather per query answers the
+        # (vertex coords | volume | vertex data) padded to 512 bytes
+        # — ONE row gather per query answers the
         # whole interpolation (C-sized assembly is cheap relative to
         # B-sized gathers)
         ftab = jnp.concatenate(
@@ -218,7 +216,7 @@ def interpolate_at_icell(grid, r, i_vars, i_cell):
         return (w[:, :, None] * vertex_vals).sum(axis=1)
 
     if grid.walk_table is not None:
-        # Geometry rides the packed 512B-row table: one fast gather
+        # Geometry rides the packed 512B-row table: one gather
         g = grid.walk_table[ic]
         cp = g[:, nf * 5 : nf * 5 + npc * 3].reshape(-1, npc, 3)
         vol = g[:, nf * 5 + npc * 3]
@@ -255,9 +253,8 @@ def _interpolate_at_T(grid, r, i_vars, guess=None, fill_value=jnp.nan):
     """interpolate_at with TRANSPOSED (V, B) values.
 
     The scalar wrapper reads ``valsT[0]`` from this, never touching a
-    (B, 1) layout: a (B, 1) f32 buffer tiles as (8, 128) blocks on TPU
-    — 128x physical padding, ~512 MB per 1M queries — and the fused
-    candidate path produces its values row-shaped (V, B) anyway.
+    (B, 1) layout; the fused candidate path produces its values
+    row-shaped (V, B) anyway.
     """
     # Capture concrete variable indices BEFORE the jnp conversion: under
     # jit tracing jnp.asarray yields a Tracer and the fused-row fast
@@ -281,14 +278,7 @@ def _interpolate_at_T(grid, r, i_vars, guess=None, fill_value=jnp.nan):
     if grid.locate_mode == "bruteforce":
         # Fused gather-free pipeline (the guess is irrelevant here:
         # containment is exact in one shot)
-        from . import pallas_interp
-
-        if grid.config.use_pallas and pallas_interp.supported(grid, r.dtype):
-            values, i_cell, found = (
-                pallas_interp.interpolate_bruteforce_pallas(grid, r, i_vars)
-            )
-        else:
-            values, i_cell, found = _interpolate_bruteforce(grid, r, i_vars)
+        values, i_cell, found = _interpolate_bruteforce(grid, r, i_vars)
         return fill_T(values.T, found), i_cell, found
 
     # Fused cold path: walk-mode grids with candidate tables answer
@@ -340,7 +330,7 @@ def interpolate_scalar_at(grid, r, i_var, guess=None, fill_value=jnp.nan):
     # Pass the raw index: a jnp conversion here would hide the
     # concrete value from interpolate_at's fused-row fast path.
     # The transposed internal keeps the whole pipeline on (1, B)
-    # layouts — values come back as one lane-major row.
+    # layouts — values come back as one (1, B) row.
     valsT, i_cell, found = _interpolate_at_T(
         grid, r, [i_var], guess, fill_value=fv
     )

@@ -1,9 +1,8 @@
-"""Accurate (compensated-f32) interpolation — the fast middle path
-between float32 (~1e-6) and software-emulated float64 (~100x slower).
+"""Accurate (compensated-f32) interpolation — a middle path between a
+float32 grid (~1e-6) and a float64 grid.
 
 The reference meets a <=1e-12 contract in native f64
-(test_triangle.f90:42-48); on TPU the f64 pipeline is ~100x slower
-than f32 end to end.  This mode keeps the f32 machinery for POINT
+(test_triangle.f90:42-48).  This mode keeps the f32 machinery for POINT
 LOCATION (a query located in a neighboring cell still interpolates
 continuously, and the walk/candidate tolerances already cover f32
 rounding) and recomputes the WEIGHTS AND VALUES in double-float
@@ -13,8 +12,7 @@ row that stores the original float64 geometry and data split into
 
     row = [vhi (npc*3) | vlo (npc*3) | dhi (nv*npc) | dlo (nv*npc)]
 
-padded to a 512-byte gather row (the fast-gather width floor measured
-in benchmarks/RESULTS.md; thinner rows gather SLOWER).  The (hi, lo)
+padded to a 512-byte gather row.  The (hi, lo)
 split is exact: hi = f32(x64), lo = f32(x64 - hi) represents any
 float64 from the bundled meshes to ~1e-14 relative.
 
@@ -25,8 +23,9 @@ df32 sum (identical inside cells, where sub-areas/volumes sum to the
 cell measure).
 
 Accuracy: ~1e-13 absolute on unit-scale meshes — measured against the
-f64 CPU path in tests/test_interp_acc.py.  Throughput: the f32 locate
-plus one 512 B gather and ~2k VPU flops per query.
+f64 CPU path in tests/test_interp_acc.py.  Work per query: the f32
+locate plus one 512 B gather and ~2k elementwise flops.  Whether this
+mode beats a native float64 grid on a GPU has not been measured.
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ import numpy as np
 
 from . import df32, locate
 
-ACC_ROW_ALIGN = 128  # floats; 512 B rows (gather width floor)
+ACC_ROW_ALIGN = 128  # floats; 512 B rows
 
 
 def acc_row_width(npc: int, nv: int) -> int:
@@ -255,45 +254,6 @@ def interpolate_at_icell_acc(grid, r_hi, i_vars, i_cell, r_lo=None):
     if r_lo is None:
         r_lo = jnp.zeros_like(r_hi)
 
-    if jax.default_backend() == "tpu":
-        # The df32 DAG is ~2000 elementwise nodes — XLA splits it into
-        # hundreds of fusions and spills every (B,) temporary to HBM
-        # (~29 ms/1M of pure math).  The Pallas kernel holds the whole
-        # computation per query tile in VMEM (see ops/pallas_acc.py).
-        from . import pallas_acc
-
-        b = r_hi.shape[0]
-        # Chunk so the gathered rows + kernel stay VMEM-resident —
-        # sized by THIS table's row bytes (acc rows widen with nv) and
-        # honoring config.cand_chunk_queries, like the candidate probe.
-        chunk = locate._cand_chunk(grid, grid.acc_table)
-
-        def tile(rh_t, rl_t, ic):
-            rows = grid.acc_table[jnp.maximum(ic, 0)]
-            return pallas_acc.interp_acc_rows(
-                rows, rh_t, rl_t, cell_type=grid.cell_type,
-                npc=npc, nv=nv, i_vars=i_vars,
-            )
-
-        if b > chunk:
-            pad = (-b) % chunk
-            rh_t = jnp.pad(r_hi, ((0, pad), (0, 0))).T
-            rl_t = jnp.pad(r_lo, ((0, pad), (0, 0))).T
-            icp = jnp.pad(jnp.maximum(i_cell, 0), (0, pad))
-            vh, vl = jax.lax.map(
-                lambda t: tile(*t),
-                (
-                    jnp.moveaxis(rh_t.reshape(3, -1, chunk), 1, 0),
-                    jnp.moveaxis(rl_t.reshape(3, -1, chunk), 1, 0),
-                    icp.reshape(-1, chunk),
-                ),
-            )
-            n_out = vh.shape[1]
-            vh = jnp.moveaxis(vh, 1, 0).reshape(n_out, -1)[:, :b]
-            vl = jnp.moveaxis(vl, 1, 0).reshape(n_out, -1)[:, :b]
-        else:
-            vh, vl = tile(r_hi.T, r_lo.T, i_cell)
-        return vh.T, vl.T
     return _interp_acc_tile(grid, r_hi, i_vars, i_cell, r_lo)
 
 

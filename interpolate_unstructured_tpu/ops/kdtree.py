@@ -1,7 +1,7 @@
 """Stackless-layout batched kd-tree: exact 1-NN over cell centers.
 
 Parity component for the reference's L0 spatial index (kdtree2
-submodule; usage m_interp_unstructured.f90:251-288).  The TPU-native
+submodule; usage m_interp_unstructured.f90:251-288).  The
 *default* cold-start seed is the O(1) uniform-grid bin table
 (ops.geometry.build_bin_seed_table) — a kd-tree descent is inherently
 pointer-chasing and gather-bound — but this module provides the exact

@@ -1,6 +1,6 @@
 """Batched point location: which cell contains each query point?
 
-TPU-native replacement for the reference's L3 engine
+Batched replacement for the reference's L3 engine
 (m_interp_unstructured.f90:272-288, :412-434, :664-786).  The serial
 one-query-at-a-time design is inverted into fixed-shape batch ops:
 
@@ -30,8 +30,9 @@ from jax import lax
 
 from ..utils.config import huge_distance, tiny_distance
 
-# TPU matmuls default to bfloat16 passes; point location needs full
-# input-precision dot products or cells are misassigned near faces.
+# Point location needs full input-precision dot products (no reduced-
+# precision matmul passes such as TF32) or cells are misassigned near
+# faces.
 _PRECISION = lax.Precision.HIGHEST
 
 # Walk status codes (parity with :664-667)
@@ -93,8 +94,7 @@ def _containment_margins(grid, r):
     """margins[b, c] = min over faces k of (d[c,k] - r_b . n[c,k]).
 
     A point is inside cell c iff margins[b, c] >= -eps (inside test of
-    :766-786, all faces at once).  The inner product rides the MXU:
-    (B, 3) x (3, C*nf).
+    :766-786, all faces at once) as one (B, 3) x (3, C*nf) product.
     """
     n_cells, nf = grid.face_offsets.shape
     normals = grid.face_normals.reshape(n_cells * nf, 3)
@@ -118,8 +118,7 @@ def locate_bruteforce(grid, r, chunk_size: int = 1024):
     def tile(rt):
         margins = _containment_margins(grid, rt)  # (bt, C)
         best = jnp.argmax(margins, axis=1).astype(jnp.int32)
-        # max == value at argmax: avoids a take_along_axis row gather
-        # (TPU gathers are ~50x slower than the reduce)
+        # max == value at argmax: no take_along_axis row gather
         found = jnp.max(margins, axis=1) >= -eps
         return jnp.where(found, best, -1), found
 
@@ -187,24 +186,12 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
 
     delta = r1 - r0
     # Explicit component math: jnp.linalg.norm's overflow-safe
-    # rescaling is several extra full passes over a lane-padded (B, 3)
-    # array (measured ~10 ms/1M on v5e — it dominated degenerate walks)
+    # rescaling adds several extra passes over the (B, 3) array
     total = jnp.sqrt(
         delta[:, 0] ** 2 + delta[:, 1] ** 2 + delta[:, 2] ** 2
     )
     degenerate = total < tiny
     u = delta / jnp.where(degenerate, 1.0, total)[:, None]
-
-    from . import pallas_walk
-
-    if pallas_walk.supported(grid, dtype, i_icell_mask):
-        # Per-round face math on-chip: the XLA body's (B, nf, 3) and
-        # (B, nf) intermediates pad their minor dims to 128 lanes
-        # (measured ~15 ms/round at 625k lanes vs ~0.3 ms of gather)
-        return _walk_pallas(
-            grid, table, r0, u, total, degenerate, ic0, max_steps,
-            nudge, eps_arrive,
-        )
 
     if i_icell_mask is not None:
         mask0 = grid.icell_data[jnp.maximum(ic0, 0), i_icell_mask]
@@ -231,8 +218,7 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
         r_p, ic, prev, dist_left, status, active, steps, n = state
         ics = jnp.maximum(ic, 0)
 
-        # One packed row gather per step: TPU gathers are latency-bound
-        # and fastest at 512-byte rows, so normals | offsets | neighbor
+        # One packed row gather per step: normals | offsets | neighbor
         # ids (| cell points | volume) travel together
         g = table[ics]  # (B, row_width)
         normals = g[:, : nf * 3].reshape(-1, nf, 3)
@@ -240,8 +226,8 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
         nbrs = g[:, nf * 4 : nf * 5].astype(jnp.int32)  # exact: |id| < 2^24
 
         # Elementwise multiply-reduce, NOT einsum: a batched (4,3)x(3,)
-        # contraction lowers to millions of tiny MXU matmuls (~15ms/1M
-        # rows measured); the VPU form is fused and full-f32
+        # contraction may lower to a batched matmul at reduced
+        # precision; the elementwise form fuses and stays full-f32
         pdn = (normals * u[:, None, :]).sum(-1)  # path . n per face
         rpn = (normals * r_p[:, None, :]).sum(-1)
         # Distance along u to each face plane; only faces with pdn > 0
@@ -326,59 +312,6 @@ def walk(grid, r0, r1, ic0, max_steps=None, i_icell_mask=None, table=None):
     return ic, r_p, n_steps, status
 
 
-def _walk_pallas(grid, table, r0, u, total, degenerate, ic0, max_steps,
-                 nudge, eps_arrive):
-    """walk()'s loop with the round body in ops/pallas_walk.py.
-
-    State lives TRANSPOSED across rounds (queries on lanes) so the
-    kernel never re-lays it out; only the per-round row gather and the
-    loop condition stay in XLA."""
-    from . import pallas_walk
-
-    b = r0.shape[0]
-    tile = 1024
-    bp = -(-max(b, tile) // tile) * tile
-
-    def row(x, dt):
-        out = jnp.zeros((1, bp), dt)
-        return out.at[0, :b].set(x.astype(dt))
-
-    def rows3(x):
-        out = jnp.zeros((3, bp), x.dtype)
-        return out.at[:, :b].set(x.T)
-
-    state = (
-        rows3(r0),
-        row(total, r0.dtype),
-        row(ic0, jnp.int32),
-        row(jnp.full(b, -1, jnp.int32), jnp.int32),  # prev
-        row(jnp.zeros(b, jnp.int32), jnp.int32),  # status
-        row(~degenerate, jnp.int32),  # active (padding lanes stay 0)
-        row(jnp.zeros(b, jnp.int32), jnp.int32),  # steps
-    )
-    u_t = rows3(u)
-
-    def cond(carry):
-        state, n = carry
-        return jnp.any(state[5] != 0) & (n < max_steps)
-
-    def body(carry):
-        state, n = carry
-        return (
-            pallas_walk.walk_round(
-                grid, table, u_t, state,
-                nudge=nudge, eps_arrive=eps_arrive, tile=tile,
-            ),
-            n + 1,
-        )
-
-    (rp_t, _, ic, _, status, active, steps), _ = lax.while_loop(
-        cond, body, (state, jnp.array(0, jnp.int32))
-    )
-    status = jnp.where(active[0, :b] != 0, STATUS_STEP_CAP, status[0, :b])
-    return ic[0, :b], rp_t[:, :b].T, steps[0, :b], status
-
-
 def _walk_origin(grid, starts):
     """Cell centers of ``starts`` (walk origins, :429) via ONE packed
     walk-table row gather — the vertex block lives at columns
@@ -425,7 +358,7 @@ def _cand_bin_flat(grid, ijk):
 
 def _cand_bin_index_t(grid, r_t):
     """Candidate-bin index from TRANSPOSED queries (3, B): three (B,)
-    component computations instead of lane-padded (B, 3) ops."""
+    component computations."""
     return _cand_bin_flat(grid, _cand_bin_ijk_t(grid, r_t))
 
 
@@ -447,13 +380,13 @@ def _compact_indices(mask, m):
     the set count fits m.
 
     top_k on descending-index keys: set lanes get distinct positive
-    keys, the largest are the lowest set indices.  Measured 5x faster
-    than cumsum+scatter on v5e (1M lanes: 1.1 vs 6.1 ms — TPU scatters
-    serialize per update).  Large batches split into ~1M-lane chunks
-    with a per-chunk quota (a single 10M-lane top_k costs 25 ms, ten
-    1M-lane ones 3.5 ms); if any chunk's set count exceeds its quota —
-    pathologically clustered misses — a guard falls back to the exact
-    global top_k.  Padding slots alias lane B-1; callers must re-mask
+    keys, the largest are the lowest set indices; it needs no scatter.
+    Large batches split into ~1M-lane chunks with a per-chunk quota
+    (several small top_k calls instead of one over the whole batch); if
+    any chunk's set count exceeds its quota — pathologically clustered
+    misses — a guard falls back to the exact global top_k.  Neither
+    choice has been re-measured on the GPU against a cumsum/scatter
+    compaction.  Padding slots alias lane B-1; callers must re-mask
     with ``mask[idx]`` (a duplicated SET lane is harmless — its merge
     writes are idempotent).
     """
@@ -499,7 +432,7 @@ def _compacted_fallback(active, m, per_lane, merge_scatter, merge_full,
     full-batch walk rounds amortize better than m-chunked ones).
 
     * zero active lanes: return ``state`` untouched — the fallback
-      costs ~2-3 ms/1M even when it recovers nothing;
+      costs full-batch passes even when it recovers nothing;
     * <= m active: stable compaction into an m-slot buffer
       (_compact_indices; padding slots alias lane b-1 and merge
       idempotently because per-lane outputs are deterministic), then
@@ -548,9 +481,8 @@ def _compacted_fallback(active, m, per_lane, merge_scatter, merge_full,
 
 def _quad_weights_c(px, py, pz, rx, ry, rz):
     """Inverse-bilinear quad weights on twelve (B,) vertex-component
-    arrays (small trailing dims pad to 128 lanes on TPU and cost
-    ~10-40x their size in HBM traffic).  The arithmetic is the single
-    shared definition in ops/wkern.py (:588-641)."""
+    arrays.  The arithmetic is the single shared definition in
+    ops/wkern.py (:588-641)."""
     from . import wkern
 
     v = [[px[k], py[k], pz[k]] for k in range(4)]
@@ -562,15 +494,14 @@ def _quad_weights_c(px, py, pz, rx, ry, rz):
 def _probe_rows_xla(grid, g, rt_t, k, count_col, var_slots, eps,
                     ovf_base, quantized=False, nv_fused=0,
                     df_planes=False):
-    """XLA fallback for the candidate-row probe (f64 grids / non-TPU
-    backends; the TPU path is ops/pallas_cand.py with identical
-    semantics).  All per-tile math runs TRANSPOSED — (k, bt)
-    sublane-shaped slices, queries as (3, bt) — because (bt, k)
-    lane-shaped intermediates pad k up to 128 lanes and cost ~10x
-    their size in HBM traffic.
+    """XLA candidate-row probe over gathered rows ``g = tab[idx]``.
+    It serves every layout; on the GPU the quantized simplex rows go
+    to ops/pallas_cand.py instead, with identical semantics.  All
+    per-tile math runs TRANSPOSED — (k, bt) slices of the rows, queries
+    as (3, bt).
 
     Returns (id_best (bt,), aux (bt,), valsT (n_vals, bt)) with the
-    kernel's aux encoding: -2 = id_best contains the query, >= 0 =
+    aux encoding: -2 = id_best contains the query, >= 0 =
     overflow-bin miss (value = extension slot / residual flag),
     -1 = exact miss."""
     nf = grid.n_faces_per_cell
@@ -587,7 +518,7 @@ def _probe_rows_xla(grid, g, rt_t, k, count_col, var_slots, eps,
         id_role = 4 * nf + (3 * npc if is_quad else 0)
     data_role0 = id_role + 1
     bt = rt_t.shape[1]
-    gT = g.T  # (W, bt): one transpose per tile, then sublane slices
+    gT = g.T  # (W, bt): one transpose per tile, then row slices
 
     def role(j):  # (k, bt) block of role j
         return gT[j * k : (j + 1) * k]
@@ -597,8 +528,8 @@ def _probe_rows_xla(grid, g, rt_t, k, count_col, var_slots, eps,
     margins = None
     if quantized:
         # int16-quantized probe in the bin-local frame (layout and
-        # semantics: models/grid._pack_qcand_rows_jit and
-        # pallas_cand._kernel — rt_t here is r_local)
+        # semantics: models/grid._pack_qcand_rows_jit — rt_t here is
+        # r_local)
         inv = jnp.float32(1.0 / 32767.0)
         ds = gT[count_col + 1]  # (bt,) per-row dscale
 
@@ -641,7 +572,7 @@ def _probe_rows_xla(grid, g, rt_t, k, count_col, var_slots, eps,
         lax.broadcasted_iota(jnp.int32, (k, bt), 0) == k_best[None, :]
     )
 
-    def pick(x):  # winner extraction over the k sublanes
+    def pick(x):  # winner extraction over the k rows
         return jnp.sum(jnp.where(onehot, x, 0), axis=0)
 
     id_best = pick(role(id_role)).astype(jnp.int32)
@@ -712,13 +643,13 @@ def _probe_rows_xla(grid, g, rt_t, k, count_col, var_slots, eps,
 def _cand_chunk(grid, table=None) -> int:
     """Per-chunk query count for the candidate probe.
 
-    Sized so the gathered rows (chunk * physical row bytes) stay in the
-    VMEM-resident regime (~64 MB on v5e; IUConfig.cand_chunk_bytes):
-    1 KB rows chunk at 64k queries, 2 KB cover rows at 32k.  Rounded to
-    an 8k multiple for tile alignment; config.cand_chunk_queries
-    overrides.  ``table`` selects which packed table's row width sizes
-    the chunk (default: the plain candidate table; the accurate-mode
-    df-plane path passes its wider ``cand_df_table``)."""
+    Sized so the gathered rows (chunk * physical row bytes) stay near
+    IUConfig.cand_chunk_bytes: 1 KB rows chunk at 64k queries, 2 KB
+    cover rows at 32k.  Rounded to an 8k multiple;
+    ``config.cand_chunk_queries`` overrides.  ``table`` selects which
+    packed table's row width sizes the chunk (default: the plain
+    candidate table; the accurate-mode df-plane path passes its wider
+    ``cand_df_table``)."""
     cfg = grid.config
     if cfg.cand_chunk_queries is not None:
         return cfg.cand_chunk_queries
@@ -731,13 +662,11 @@ def _chunked_cols(tile_fn, rt, b, chunk):
     """Drive a per-tile probe over column chunks of ``rt``.
 
     ``rt`` is (nrows, B) — queries stay TRANSPOSED through the
-    candidate path (a per-chunk transpose costs ~1-2 ms/1M on TPU);
+    candidate path, so chunks are contiguous column slices;
     ``tile_fn(rt_chunk) -> (ids, aux, valsT)`` with valsT (nv, chunk).
     <= 32 chunks unroll (XLA's scheduler may overlap one chunk's row
-    gather with another's kernel); larger batches run one sequential
-    ``lax.map`` (round 3: mapping over GROUPS of unrolled tiles
-    measured exactly equal to the plain map — the TPU HLO schedule
-    does not overlap independent gathers across fusion boundaries).
+    gather with another's probe); larger batches run one sequential
+    ``lax.map``.
     """
     if b <= chunk:
         return tile_fn(rt)
@@ -771,18 +700,19 @@ def _candidates_query(grid, r, var_slots=None, max_steps=None):
     candidate rows: ONE wide row gather answers "which cell contains r"
     — and, when ``var_slots`` selects fused variables, the interpolated
     values too — for every query whose bin's complete candidate list
-    fits the packed row (the overwhelming majority; measured ~98% on a
-    1M-cell tet mesh at K=15).
+    fits the packed row (the overwhelming majority: ~98% of uniform
+    queries on a 1M-cell tet mesh at K=15, counted on CPU).
 
     This replaces seed-then-walk for cold batches: each walk step is a
     full gather round over the batch, while the candidate row carries
     the face planes (and interpolation payload) of every cell
-    intersecting the query's bin, so containment is a branch-free VPU
-    reduction over K candidates.  Queries in overflow bins (complete
-    list > K) that match no stored candidate compact into a small
-    buffer and probe the bin's EXTENSION row (candidates K..K+k_ext,
-    same layout, same kernel) — so where the extension covers the worst
-    bin, every miss is exact: the point is outside the mesh.  Only
+    intersecting the query's bin, so containment is a branch-free
+    elementwise reduction over K candidates.  Queries in overflow bins
+    (complete list > K) that match no stored candidate compact into a
+    small buffer and probe the bin's EXTENSION row (candidates
+    K..K+k_ext, same layout, same probe) — so where the extension covers
+    the worst bin, every miss is exact: the point is outside the mesh.
+    Only
     grids whose worst bin exceeds K + k_ext (or grids built without
     extension lists) ever fall back to a compacted neighbor walk
     seeded at the most interior candidate.
@@ -793,13 +723,7 @@ def _candidates_query(grid, r, var_slots=None, max_steps=None):
     :529-586, for points inside the cell); quads carry their vertices
     and run the inverse-bilinear kernel (:588-641) on the winner.
 
-    All per-tile math runs TRANSPOSED — (K, bt) sublane-shaped slices of
-    the gathered rows and (bt,) component arrays — because (bt, K)
-    lane-shaped intermediates pad K up to 128 lanes and cost ~10x their
-    size in HBM traffic (measured 18.7 vs 11 ms/1M).
-
-    Returns (ic, found, valsT) — valsT is TRANSPOSED (n_vars, B)
-    (a (B, 1) f32 buffer tiles to 128x its logical size on TPU), and
+    Returns (ic, found, valsT) — valsT is TRANSPOSED (n_vars, B), and
     None when var_slots is.
     """
     cfg = grid.config
@@ -838,28 +762,19 @@ def _candidates_query(grid, r, var_slots=None, max_steps=None):
 
     from . import pallas_cand
 
-    use_pallas = (
-        pallas_cand.supported(grid) and jax.default_backend() == "tpu"
-    )
+    use_kernel = pallas_cand.supported(grid, jax.default_backend())
 
     def probe(tab, idx, rt_t, k, ccol, ovf_base):
-        """Gather rows ``tab[idx]`` + containment verdict + fused
-        values; queries arrive TRANSPOSED (3, bt).  Returns
-        (id_best, aux, valsT) with the kernel's aux encoding
-        (pallas_cand._kernel): -2 found, >= 0 overflow miss, -1 exact
-        miss."""
-        if use_pallas:
-            # One streaming Pallas pass over the rows gathered inside
-            # (tile-alignment pads the indices, not the rows): the XLA
-            # math costs 2-4x more (per-consumer re-streams of the
-            # gather + lane-padded small-K intermediates;
-            # benchmarks/prof_cand.py)
+        """Probe rows ``tab[idx]``: containment verdict + fused values;
+        queries arrive TRANSPOSED (3, bt).  Returns (id_best, aux,
+        valsT) with _probe_rows_xla's aux encoding: -2 found, >= 0
+        overflow miss, -1 exact miss."""
+        if use_kernel:
             # Empty/None slots yield a (0, bt) vals array (never None
             # — the chunk driver concatenates the outputs)
             return pallas_cand.cand_rows_query(
                 grid, tab, idx, rt_t, var_slots or (), ccol,
-                eps, ovf_base, k_max=k,
-                quantized=quantized, nv_fused=nv,
+                eps, ovf_base, k, nv,
             )
         return _probe_rows_xla(
             grid, tab[idx], rt_t, k, ccol, var_slots, eps, ovf_base,
@@ -876,11 +791,12 @@ def _candidates_query(grid, r, var_slots=None, max_steps=None):
         )
 
     # ONE (B, 3) -> (3, B) transpose up front; per-chunk column slices
-    # are contiguous (a per-chunk transpose costs ~1-2 ms each on TPU).
-    # Tile big batches so the gathered rows stay bounded in HBM.
+    # are contiguous.  The XLA probe tiles big batches so its gathered
+    # rows stay bounded in device memory; the kernel gathers nothing
+    # and takes the batch whole.
     r_t = r.T  # the fallback below re-gathers from it
     id_best, aux, valsT = _chunked_cols(
-        tile_fn, r_t, b, _cand_chunk(grid)
+        tile_fn, r_t, b, b if use_kernel else _cand_chunk(grid)
     )
 
     found = aux == -2
@@ -896,10 +812,7 @@ def _candidates_query(grid, r, var_slots=None, max_steps=None):
         # compaction, no extension probe, no merge scatters.
         return ic, found, valsT if var_slots is not None else None
     # Values stay TRANSPOSED (nv, B) through the fallback and out the
-    # return: a (B, 1) f32 buffer tiles as (8, 128) blocks on TPU —
-    # 128x physical padding, ~512 MB per 1M queries — and the old
-    # valsT.T here put every downstream pass (merge, fill, squeeze)
-    # on that layout.
+    # return, the layout the probe produces them in.
     values = valsT if var_slots is not None else None
 
     def walk_and_interp(idx, active):
@@ -1045,8 +958,6 @@ def _candidates_query_df(grid, r, var_slots, r_lo=None):
     cfg = grid.config
     from ..models.grid import _qdf_floats_per, cand_fused_nv
 
-    from . import pallas_cand
-
     nv = cand_fused_nv(grid)
     if any(v >= nv for v in var_slots):
         raise ValueError("var_slots outside the fused variable range")
@@ -1054,9 +965,6 @@ def _candidates_query_df(grid, r, var_slots, r_lo=None):
     per = _qdf_floats_per(grid.cell_type, nv)
     count_col = k_max * per
     eps = cfg.eps_inside + grid.cand_qeps
-    use_pallas = (
-        pallas_cand.supported(grid) and jax.default_backend() == "tpu"
-    )
     b = r.shape[0]
     nsel = len(var_slots)
 
@@ -1069,12 +977,6 @@ def _candidates_query_df(grid, r, var_slots, r_lo=None):
         ijk = _cand_bin_ijk_t(grid, rt6[:3])
         idx = _cand_bin_flat(grid, ijk)
         rq6 = _cand_local_df_t(grid, rt6[:3], rt6[3:], ijk)
-        if use_pallas:
-            return pallas_cand.cand_rows_query(
-                grid, grid.cand_df_table, idx, rq6, var_slots,
-                count_col, eps, k_max, k_max=k_max,
-                quantized=True, nv_fused=nv, df_planes=True,
-            )
         return _probe_rows_xla(
             grid, grid.cand_df_table[idx], rq6, k_max, count_col,
             var_slots, eps, k_max, quantized=True, nv_fused=nv,
@@ -1093,11 +995,11 @@ def _candidates_query_df(grid, r, var_slots, r_lo=None):
 def _get_cell_warm(grid, r, guess, max_steps):
     """Warm-start location on candidate-table grids.
 
-    The one-gather candidate path answers every query ~4x cheaper per
-    lane than even a short guess-seeded walk (measured on v5e: the
-    bench's advected warm batch still crosses a face for ~65% of lanes
-    on a 1M-cell mesh, so a "did it stay put" pretest round loses
-    money).  The guess still buys reference parity where it matters:
+    The one-gather candidate path answers every query in one probe,
+    while a guess-seeded walk needs a gather round per face crossed
+    (the bench's advected warm batch still crosses a face for ~65% of
+    lanes on a 1M-cell mesh, so a "did it stay put" pretest round does
+    not pay).  The guess still buys reference parity where it matters:
     candidate MISSES with a guess replay the reference walk from the
     guess cell (iu_get_cell_through_neighbors, :664-725) on a small
     compacted buffer, so off-domain queries report the boundary code

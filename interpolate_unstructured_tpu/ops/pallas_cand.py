@@ -1,38 +1,29 @@
-"""Pallas TPU kernel: consume gathered candidate rows in one pass.
+"""Candidate-row probe as a Pallas kernel on the Triton route (GPU).
 
-The cold-locate candidate path gathers one packed row per query (XLA's
-row gather runs at HBM bandwidth) and then answers containment — and,
-for fused variables, interpolation — from that row.  Doing the row math
-in XLA costs 3-8x the gather itself: every (B, K) intermediate with
-K ~ 10 lane-pads to (B, 128), and the role slices of the (B, W) gather
-re-stream the buffer per consumer (measured on v5e:
-benchmarks/prof_cand.py — gather 5.7 ms/1M, XLA phase-0 11-22 ms/1M,
-fused values 30-48 ms/1M).
+The cold-locate candidate path answers containment — and the fused
+interpolation — from one packed row per query.  Its XLA twin
+(ops.locate._probe_rows_xla) consumes a gathered ``tab[idx]`` buffer:
+``chunk x W`` floats, 1-2 KB per query.  This kernel reads each
+query's row straight from the table in device memory: each program
+owns ``block`` queries, loads their row indices, and gathers the row
+role by role (K candidate columns, padded to a power of two) into
+registers.  No gathered buffer is written or read back.
 
-This kernel streams (TILE, W) blocks of the gathered rows through VMEM,
-TRANSPOSES each block once on-chip (one MXU-backed relayout instead of
-per-op lane padding), and runs all the small-K reductions — face
-margins, argmax, one-hot picks, barycentric / inverse-bilinear values —
-as (K, TILE) sublane-sliced ops at full lane utilization.  Only
-~16 B/query of results go back to HBM.
+Covered layout: QUANTIZED f32 simplex rows (triangle / tetra,
+``IUConfig.cand_quantized``; models/grid._pack_qcand_rows_jit), for the
+main and the overflow-extension tables::
 
-Row layouts (cols role-major, K wide; column of role j, candidate k is
-``j*K + k``):
-  f32 simplex (models/grid._pack_cand_rows_jit):
-           [nx_f | ny_f | nz_f | off_f | id | pdata | count]
-  quad:    [nx_f | ny_f | nz_f | off_f | vtx(v,dim) | id | data | count]
-  QUANTIZED simplex (grid._pack_qcand_rows_jit, the f32 default —
-  int16 probe geometry in the query bin's local frame + exact f32
-  value planes; ~1.3-1.6x fewer row bytes and the random row gather
-  is ~94% of the cold query):
-           [qn pairs | qd pairs | (gx gy gz c)*nv | id | count | dscale]
-Simplex f32 ``pdata`` is vertex data premultiplied by the vertex's
-inverse height, so values are formed straight from margins (no
-inverse-height role).  For the quantized layout ``r_ref`` carries
-r_local = r - bin_center instead of r.
+    [qn pairs | qd pairs | (gx gy gz c) * nv | id] * K | count | dscale
 
-Semantics match ops.locate._candidates_query's XLA tile path exactly
-(m_interp_unstructured.f90:766-786 containment, :529-641 weights).
+with role j of candidate k at column ``j*K + k``.  ``r`` carries
+r_local = r - bin_center (ops.locate._cand_local_t).  Quad rows,
+unquantized f32 rows, f64 grids and the accurate-mode df-plane rows
+stay on ``_probe_rows_xla``.
+
+Only elementwise multiply-adds and reductions: no ``pl.dot``, so no
+product can drop to TF32.  Semantics match ``_probe_rows_xla`` exactly
+(m_interp_unstructured.f90:766-786 containment); the arg-max takes the
+first of equal margins, as ``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -43,305 +34,164 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+# Queries per program and the launch shape.  A (block, KP) role tile of
+# 128 x 64 f32 spreads over 256 threads at 32 values each.
+BLOCK = 128
+NUM_WARPS = 8
+NUM_STAGES = 1
 
 
-def _round_up(x, m):
-    return -(-x // m) * m
+def supported(grid, platform: str) -> bool:
+    """Whether the kernel serves this grid's candidate probe on
+    ``platform`` (a ``jax.Device.platform`` string, passed in by the
+    caller so tests can exercise the choice without a GPU)."""
+    from ..models.grid import cand_is_quantized
+
+    return platform == "gpu" and cand_is_quantized(
+        grid.cell_type, grid.dtype, grid.config
+    )
 
 
-def _quad_weights_rows(p, q):
-    """Inverse-bilinear quad weights on (1, T) row vectors.
-
-    ``p[v]`` = (x, y, z) rows of vertex v, ``q`` = query rows.  The
-    arithmetic is the single shared definition in ops/wkern.py
-    (:588-641)."""
-    from . import wkern
-
-    return wkern.quad_weights_generic(p, q, wkern.Plain(q[0].dtype))
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def _kernel(
-    g_ref, r_ref, ic_ref, aux_ref, vals_ref,
-    *, cell_type, nf, npc, k_max, var_slots, count_col, eps, ovf_base,
-    quantized=False, nv_fused=0, df_planes=False
-):
-    K = k_max
-    is_quad = cell_type == "quad"
+def _kernel(idx_ref, rx_ref, ry_ref, rz_ref, tab_ref, ic_ref, aux_ref,
+            *vals_refs, nf, k, kp, width, var_slots, nv_fused, count_col,
+            eps, ovf_base):
+    i = idx_ref[...]  # (BQ,) row per query
+    rows = i[:, None]
+    kcol = lax.broadcasted_iota(jnp.int32, (1, kp), 1)
+    live = kcol < k
+
+    def role(j):
+        # (BQ, KP) columns j*K .. j*K+KP-1 of each query's row; the
+        # KP-K overhang reads the next role (masked below) and is
+        # clipped to the row so the last role never leaves the table
+        cols = jnp.minimum(j * k + kcol, width - 1)
+        return tab_ref[rows, cols]
+
+    def unpack(j):  # role j -> its two sign-extended int16 halves
+        w = lax.bitcast_convert_type(role(j), jnp.int32)
+        # jnp shifts keep int32 under x64; >> on signed ints is
+        # arithmetic
+        lo = jnp.right_shift(jnp.left_shift(w, 16), 16)
+        hi = jnp.right_shift(w, 16)
+        return lo.astype(jnp.float32), hi.astype(jnp.float32)
+
     s_n = -(-3 * nf // 2)
     s_d = -(-nf // 2)
-    if df_planes:
-        # accurate-mode rows (grid._pack_qdf_rows_jit): quantized probe
-        # + (hi, lo) df32 value planes; r_ref carries the (hi, lo)
-        # split of r_local as 6 rows
-        id_role = s_n + s_d + 8 * nv_fused
-    elif quantized:
-        id_role = s_n + s_d + 4 * nv_fused
-    else:
-        id_role = 4 * nf + (3 * npc if is_quad else 0)
+    id_role = s_n + s_d + 4 * nv_fused
+    rx = rx_ref[...][:, None]
+    ry = ry_ref[...][:, None]
+    rz = rz_ref[...][:, None]
+    ds = tab_ref[i, count_col + 1][:, None]
+    inv = jnp.float32(1.0 / 32767.0)
 
-    # One on-chip transpose instead of lane-padding every small-K op
-    GT = jnp.transpose(g_ref[:])  # (W, T)
-
-    def role(j):  # (K, T) sublane slice of role j
-        return GT[j * K:(j + 1) * K]
-
-    rx = r_ref[0:1, :]
-    ry = r_ref[1:2, :]
-    rz = r_ref[2:3, :]
-
-    m_faces = []
+    comps = []
+    for s in range(s_n):
+        comps.extend(unpack(s))
+    dcomps = []
+    for s in range(s_d):
+        dcomps.extend(unpack(s_n + s))
     margins = None
-    if quantized:
-        # int16-quantized probe (models/grid._pack_qcand_rows_jit):
-        # unit normals at 1/32767 scale, face offsets in the query
-        # bin's LOCAL frame at the row's dscale.  r_ref carries
-        # r_local = r - bin_center.  Margins are exact planes within
-        # grid.cand_qeps of the true faces; eps already includes that.
-        inv = jnp.float32(1.0 / 32767.0)
-        ds = GT[count_col + 1:count_col + 2]  # (1, T) row dscale
+    for f in range(nf):
+        proj = (
+            comps[3 * f] * rx + comps[3 * f + 1] * ry + comps[3 * f + 2] * rz
+        ) * inv
+        mf = dcomps[f] * ds - proj
+        margins = mf if margins is None else jnp.minimum(margins, mf)
+    idv = role(id_role)
+    margins = jnp.where(live & (idv >= 0), margins, jnp.float32(-1e30))
 
-        def unpack(j):  # slot j -> (even, odd) int16 comps as f32
-            w = jax.lax.bitcast_convert_type(role(j), jnp.int32)
-            # jnp shifts keep int32 under x64 (weak-typed literals);
-            # >> on signed ints is arithmetic, giving the sign-extended
-            # int16 halves
-            lo = jnp.right_shift(jnp.left_shift(w, 16), 16)
-            hi = jnp.right_shift(w, 16)
-            return lo.astype(jnp.float32), hi.astype(jnp.float32)
+    m_best = jnp.max(margins, axis=1)
+    k_best = jnp.min(
+        jnp.where(margins == m_best[:, None], kcol, kp), axis=1
+    )
+    onehot = kcol == k_best[:, None]
 
-        comps = []
-        for s in range(s_n):
-            comps.extend(unpack(s))
-        dcomps = []
-        for s in range(s_d):
-            dcomps.extend(unpack(s_n + s))
-        idv = role(id_role)
-        for f in range(nf):
-            proj = (
-                comps[3 * f] * rx
-                + comps[3 * f + 1] * ry
-                + comps[3 * f + 2] * rz
-            ) * inv
-            mf = dcomps[f] * ds - proj
-            m_faces.append(mf)
-            margins = mf if margins is None else jnp.minimum(margins, mf)
-        # padding slots carry no huge-offset sentinel (int16 can't);
-        # mask them out by the id sign instead
-        margins = jnp.where(idv < 0, jnp.float32(-1e30), margins)
-    else:
-        # Margins from PRECOMPUTED unit face planes: 2 fused
-        # multiply-adds per face vs ~40 VPU ops for vertex-derived
-        # planes.  A vertex-only row (17 floats/candidate, K 15 at
-        # 1 KB) was measured 8.6 ms/1M in-kernel vs 3.6 for this
-        # layout — the gather bytes saved never paid for the in-kernel
-        # cross products (benchmarks/RESULTS.md round 3).
-        for f in range(nf):
-            mf = role(3 * nf + f) - (
-                role(f) * rx + role(nf + f) * ry + role(2 * nf + f) * rz
-            )
-            m_faces.append(mf)
-            margins = mf if margins is None else jnp.minimum(margins, mf)
+    def pick(x):  # the winner's column, (BQ, KP) -> (BQ,)
+        return jnp.sum(jnp.where(onehot, x, 0.0), axis=1)
 
-    k_best = jnp.argmax(margins, axis=0, keepdims=True).astype(jnp.int32)
-    m_best = jnp.max(margins, axis=0, keepdims=True)
-
-    t = GT.shape[1]
-    onehot = lax.broadcasted_iota(jnp.int32, (K, t), 0) == k_best
-
-    def pick(x):  # winner's value, (K, T) -> (1, T)
-        return jnp.sum(jnp.where(onehot, x, 0.0), axis=0, keepdims=True)
-
-    id_best = pick(role(id_role)).astype(jnp.int32)
-    ic_ref[:] = id_best
-    # Containment verdict folded in-kernel (the host-side found/
-    # overflow decode cost several full-batch elementwise passes):
-    #   aux == -2  -> id_best contains the query
-    #   aux >= 0   -> overflow-bin miss; aux = extension-table slot
-    #                 (main table) / residual-walk flag (ext table,
-    #                 where count > ovf_base means even the extension
-    #                 row didn't hold the full list)
-    #   aux == -1  -> exact miss: the point is outside the mesh
-    cnt = GT[count_col:count_col + 1].astype(jnp.int32)
+    id_best = pick(idv).astype(jnp.int32)
+    cnt = tab_ref[i, count_col].astype(jnp.int32)
     found = (m_best >= -eps) & (id_best >= 0)
     ovf_miss = (~found) & (cnt > ovf_base) & (id_best >= 0)
-    aux_ref[:] = jnp.where(
+    ic_ref[...] = id_best
+    aux_ref[...] = jnp.where(
         found, -2, jnp.where(ovf_miss, cnt - (ovf_base + 1), -1)
     )
-
-    if not var_slots:
-        vals_ref[:] = jnp.zeros_like(vals_ref)
-        return
-
-    data_role0 = id_role + 1
-    rows = []
-    if df_planes:
-        # df32 value planes: v = g . r_local + c_loc evaluated in
-        # compensated-f32 (ops/df32) with the exact (hi, lo) r_local
-        # split from rows 3..5 of r_ref — ~2^-48 relative end to end
-        from . import df32
-
-        rl = [
-            (r_ref[d : d + 1, :], r_ref[3 + d : 4 + d, :])
-            for d in range(3)
-        ]
-        his, los = [], []
-        for slot in var_slots:
-            pr = s_n + s_d + 8 * slot
-            # pick the WINNER's plane first (8 one-hot reductions),
-            # then run the ~90-op df32 evaluation on (1, T) rows only
-            acc = (pick(role(pr + 6)), pick(role(pr + 7)))  # c_loc
-            for d in range(3):
-                g_d = (pick(role(pr + d)), pick(role(pr + 3 + d)))
-                acc = df32.add(acc, df32.mul(g_d, rl[d]))
-            his.append(acc[0])
-            los.append(acc[1])
-        vals_ref[:] = jnp.concatenate(his + los, axis=0)
-        return
-    if quantized:
-        # Exact f32 per-cell value planes: value = g . r_local + c
-        for slot in var_slots:
-            pr = s_n + s_d + 4 * slot
-            val = (
-                role(pr) * rx + role(pr + 1) * ry + role(pr + 2) * rz
-                + role(pr + 3)
-            )
-            rows.append(pick(val))
-        vals_ref[:] = jnp.concatenate(rows, axis=0)
-        return
-    if is_quad:
-        v0 = 4 * nf  # first vertex role
-        p = [
-            [pick(role(v0 + v * 3 + d)) for d in range(3)]
-            for v in range(npc)
-        ]
-        w = _quad_weights_rows(p, (rx, ry, rz))
-        for slot in var_slots:
-            acc = w[0] * pick(role(data_role0 + slot * npc))
-            for v in range(1, npc):
-                acc = acc + w[v] * pick(role(data_role0 + slot * npc + v))
-            rows.append(acc)
-    else:
-        # barycentric straight from margins: the packed data of vertex
-        # v is PREMULTIPLIED by its inverse height at build time
-        # (models/grid._pack_cand_rows_jit), so the weight of vertex v
-        # is just the margin of face (v+1)%npc
-        for slot in var_slots:
-            dr = data_role0 + slot * npc
-            acc = None
-            for v in range(npc):
-                term = m_faces[(v + 1) % npc] * role(dr + v)
-                acc = term if acc is None else acc + term
-            rows.append(pick(acc))
-    vals_ref[:] = jnp.concatenate(rows, axis=0)
+    for vals_ref, slot in zip(vals_refs, var_slots):
+        pr = s_n + s_d + 4 * slot
+        val = role(pr) * rx + role(pr + 1) * ry + role(pr + 2) * rz
+        vals_ref[...] = pick(val + role(pr + 3))
 
 
-def supported(grid) -> bool:
-    return (
-        grid.dtype == jnp.float32
-        and grid.cell_type in ("triangle", "tetra", "quad")
-    )
-
-
-def cand_rows_query(grid, table, idx, rt_t, var_slots, count_col,
-                    eps, ovf_base, k_max=None, tile: int = 1024,
-                    interpret: bool | None = None,
-                    quantized: bool = False, nv_fused: int = 0,
-                    df_planes: bool = False):
-    """Gather candidate rows and run the kernel over them.
-
-    The gather happens HERE so tile-alignment padding applies to the
-    4-byte indices, not the kilobyte rows (padding a gathered (B, W)
-    buffer is a full extra HBM copy — visible as a 1 GB `pad` op in
-    the compiled HLO for non-tile-multiple batches).
+def cand_rows_query(grid, table, idx, rt_t, var_slots, count_col, eps,
+                    ovf_base, k_max, nv_fused, *, block: int = BLOCK,
+                    interpret: bool = False):
+    """Probe quantized candidate rows ``table[idx]`` without gathering
+    them first.
 
     Args:
-      table: (n_rows, W) float32 packed candidate rows (main or
-        extension table)
-      idx: (B,) int32 row index per query
-      rt_t: (3, B) float32 TRANSPOSED queries (the hot path keeps
-        queries lane-major throughout — per-call (B, 3) transposes
-        cost ~1-2 ms each at 1M on TPU); (6, B) hi/lo r_local split
-        when ``df_planes``
-      var_slots: tuple of fused variable slots to interpolate (or ())
-      count_col: column of the count slot in the row layout
-      eps: static inside-test tolerance (resolved config value)
-      ovf_base: static count threshold above which a missed query is
-        an overflow-bin miss (main table: K; extension table:
-        K + k_ext)
-      k_max: candidates per row (defaults to the main table's K; pass
-        the extension width when probing extension rows)
+      table: (n_rows, W) float32 packed rows (main or extension table).
+      idx: (B,) int32 row per query.
+      rt_t: (3, B) float32 r_local = r - bin_center, transposed.
+      var_slots: fused variable slots to interpolate (may be empty).
+      count_col: column of the row's count slot (dscale follows it).
+      eps: static inside-test tolerance, quantization fuzz included.
+      ovf_base: count above which a missed query is an overflow-bin
+        miss (main table: K; extension table: K + k_ext).
+      k_max: candidates per row of ``table``.
+      nv_fused: fused variables per candidate in the row layout.
+      block: queries per program (a power of two).
+      interpret: run the kernel body through the Pallas interpreter
+        (CPU tests); the GPU runs it compiled.
 
-    Returns (id_best (B,) int32, aux (B,) int32, valsT (V, B); a
-    (0, B) array when no slots are requested); see _kernel for the
-    aux encoding.
+    Returns (id_best (B,) int32, aux (B,) int32, valsT (len(var_slots),
+    B)) with ``_probe_rows_xla``'s aux encoding: -2 = id_best contains
+    the query, >= 0 = overflow-bin miss (extension slot / residual
+    flag), -1 = exact miss.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     b = idx.shape[0]
-    w = table.shape[1]
-    nf = grid.n_faces_per_cell
-    npc = grid.n_points_per_cell
-    if k_max is None:
-        k_max = grid.cand_ids.shape[1]
-    n_rrows = 6 if df_planes else 3
-    n_out = max((2 if df_planes else 1) * len(var_slots), 1)
-
-    b_pad = _round_up(max(b, tile), tile)
+    n_out = len(var_slots)
+    b_pad = -(-max(b, 1) // block) * block
     if b_pad != b:
+        # pads the 16 B/query inputs, never the rows
         idx = jnp.pad(idx, (0, b_pad - b))
         rt_t = jnp.pad(rt_t, ((0, 0), (0, b_pad - b)))
-    g = table[idx]
-    r_t = rt_t.astype(jnp.float32)
-
     kernel = functools.partial(
         _kernel,
-        cell_type=grid.cell_type,
-        nf=nf,
-        npc=npc,
-        k_max=k_max,
-        var_slots=tuple(var_slots),
-        count_col=count_col,
+        nf=grid.n_faces_per_cell,
+        k=int(k_max),
+        kp=_pow2(k_max),
+        width=table.shape[1],
+        var_slots=tuple(int(v) for v in var_slots),
+        nv_fused=int(nv_fused),
+        count_col=int(count_col),
         eps=float(eps),
         ovf_base=int(ovf_base),
-        quantized=bool(quantized),
-        nv_fused=int(nv_fused),
-        df_planes=bool(df_planes),
     )
-
-    n_tiles = b_pad // tile
-    f32 = jnp.float32
-    ic, aux, vals = pl.pallas_call(
+    # Every block is 1-D and a power of two, as Triton requires: the
+    # query components and the value rows travel as separate arrays.
+    vec = pl.BlockSpec((block,), lambda q: (q,))
+    i32, f32 = jnp.int32, jnp.float32
+    ic, aux, *vals = pl.pallas_call(
         kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((tile, w), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_rrows, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_out, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, b_pad), jnp.int32),
-            jax.ShapeDtypeStruct((1, b_pad), jnp.int32),
-            jax.ShapeDtypeStruct((n_out, b_pad), f32),
-        ],
+        grid=(b_pad // block,),
+        in_specs=[vec, vec, vec, vec, pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=[vec] * (2 + n_out),
+        out_shape=[jax.ShapeDtypeStruct((b_pad,), i32)] * 2
+        + [jax.ShapeDtypeStruct((b_pad,), f32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
         interpret=interpret,
-    )(g, r_t)
-
-    # Empty var_slots returns a (0, b) array, NOT None: callers chunk
-    # the outputs through lax.map/concatenate, where a None leaf means
-    # a crash one refactor away (the kernel's scratch output row is
-    # simply dropped).
-    return (
-        ic[0, :b],
-        aux[0, :b],
-        vals[:, :b] if var_slots else vals[:0, :b],
-    )
+        name="cand_probe",
+    )(idx.astype(i32), *rt_t.astype(f32), table)
+    valsT = (jnp.stack([v[:b] for v in vals]) if vals
+             else jnp.zeros((0, b), f32))
+    return ic[:b], aux[:b], valsT

@@ -1,11 +1,10 @@
 """Single source of truth for the per-cell weight kernels.
 
 The interpolation weight formulas (m_interp_unstructured.f90:529-551
-triangle, :553-586 tetra, :588-641 quad) are consumed by five layouts:
+triangle, :553-586 tetra, :588-641 quad) are consumed by three layouts:
 
 * tensor (B, npc, 3) geometry      — ops/interp.py
 * (B,) component arrays            — ops/locate._probe_rows_xla
-* (1, T) Pallas row vectors        — ops/pallas_cand.py, ops/pallas_interp.py
 * df32 (hi, lo) pairs              — ops/interp_acc.py
 
 Round 2 proved that hand-synchronized copies drift (the quad

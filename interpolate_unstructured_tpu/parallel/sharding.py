@@ -1,15 +1,16 @@
 """Multi-chip scaling: query batches sharded over a device mesh.
 
 The reference is strictly serial (SURVEY.md §2.3: no MPI/NCCL/OpenMP);
-its TPU-native replacement (SURVEY.md §5.8) is:
+its batched replacement (SURVEY.md §5.8) is:
 
 * mesh arrays **replicated** per device (small relative to HBM),
-* query batches **sharded** over chips on a 1-D ``data`` mesh axis,
+* query batches **sharded** over devices on a 1-D ``data`` mesh axis,
 * ``shard_map`` so each device's neighbor-walk ``while_loop`` exits as
   soon as *its* shard converges (no per-step global all-reduce),
 * communication is just the scatter/gather of query inputs and results
-  over ICI — the hot loop needs no collectives because the grid is
-  replicated.
+  — the hot loop needs no collectives because the grid is replicated.
+  The mesh is 1-D: every device is treated alike, so it needs no
+  topology-aware shaping.
 """
 
 from __future__ import annotations
@@ -217,20 +218,14 @@ def sharded_trace(mesh: Mesh, axis_name: str = DATA_AXIS, **trace_kwargs):
 
     The fused per-cell trace table is built ONCE outside the shard_map
     (replicated, like the grid) rather than per call inside each
-    shard — at 1M cells the 244 MB assembly otherwise dominates
-    small-bundle traces (benchmarks/RESULTS.md round 5).  Pass a
+    shard (a 1M-cell table is 244 MB in f32).  Pass a
     prebuilt :func:`~interpolate_unstructured_tpu.build_trace_table`
     result to reuse it across repeated calls over the same field.
     """
 
     def local(grid, table, y0, i_field):
-        res = trace_mod.integrate_along_field(
+        return trace_mod.integrate_along_field(
             grid, y0, i_field, trace_table=table, **trace_kwargs
-        )
-        # n_rounds is a per-shard scalar diagnostic: total it so the
-        # output is replicated (out_spec P()).
-        return res._replace(
-            n_rounds=jax.lax.psum(res.n_rounds, axis_name)
         )
 
     def run(grid, y0, i_field, trace_table=None):
@@ -247,7 +242,6 @@ def sharded_trace(mesh: Mesh, axis_name: str = DATA_AXIS, **trace_kwargs):
                 n_steps=P(axis_name),
                 boundary_material=P(axis_name),
                 n_iterations=P(axis_name),
-                n_rounds=P(),
             ),
         )
         return f(grid, trace_table, y0, i_field)

@@ -2,11 +2,11 @@
 interpolated vector field.
 
 Re-design of ``iu_integrate_along_field``
-(m_interp_unstructured.f90:987-1217) for TPU execution: one batched
+(m_interp_unstructured.f90:987-1217) for batched execution: one
 ``lax.while_loop`` over the whole trajectory batch with fixed-shape
-output buffers and explicit active-lane masking (vmapping a nested
-while_loop both miscompiles at some batch shapes on this backend and
-is ~5x slower — see benchmarks/RESULTS.md).  Control-flow parity:
+output buffers and explicit active-lane masking (a vmapped nested
+while_loop would run every lane for the slowest lane's iteration
+count anyway).  Control-flow parity:
 
 * integrates along the *unit vector* of the interpolated field
   (arc-length parameterization, get_unitvec :1193-1201, optional
@@ -43,7 +43,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from .ops import interp, locate, pallas_trace
+from .ops import interp, locate
 
 SAFETY_FAC = 0.8
 MIN_RADIUS = 1e-12
@@ -82,8 +82,6 @@ class TraceResult(NamedTuple):
     #                         or BM_STEP_CAP (walk cap at min_dx — see
     #                         the sentinel's comment)
     n_iterations: Any  # (B,) int32: RK iterations spent (diagnostics)
-    n_rounds: Any = None  # scalar int32: total fused tracer-kernel
-    #                       rounds (diagnostics; 0 on the generic path)
 
 
 class _State(NamedTuple):
@@ -100,7 +98,6 @@ class _State(NamedTuple):
     done: Any
     overflow: Any  # buffer filled before a boundary was reached
     boundary_material: Any
-    n_rounds: Any  # scalar: accumulated fused-kernel rounds
 
 
 def _default_sub_int(field, y):
@@ -120,10 +117,9 @@ def build_trace_table(grid, i_field):
 
     Public so repeated trace calls over the SAME field can prebuild it
     once and pass ``trace_table=`` to :func:`integrate_along_field`:
-    assembled inline it is re-gathered and re-written every call, which
-    at ~1M cells (244 MB) costs more than tracing a small bundle does
-    (benchmarks/RESULTS.md round 5).  ``i_field`` order must match the
-    ``i_field`` later passed to the trace call.
+    assembled inline it is re-gathered and re-written every call (a
+    ~1M-cell mesh's table is 244 MB in f32).  ``i_field`` order must
+    match the ``i_field`` later passed to the trace call.
     """
     n_cells = grid.n_cells
     nf = grid.n_faces_per_cell
@@ -141,12 +137,8 @@ def build_trace_table(grid, i_field):
         ],
         axis=1,
     )
-    # 64-element rows: 256 B in f32.  At tracer table sizes (tens of k
-    # cells, reused rows) the 64k-row gather measured 112 us at 256 B
-    # vs 137 us at 512 B, and the kernel's table-block read halves —
-    # the gather dominates the fused round, so thinner rows win (the
-    # 512 B-1 KB guidance in benchmarks/RESULTS.md is for 1M-row
-    # tables with no reuse).
+    # Rows padded to a multiple of 16 elements, at least 64 (256 B in
+    # f32); the width has not been tuned on the GPU.
     row_width = max(64, -(-cols.shape[1] // 16) * 16)
     pad = row_width - cols.shape[1]
     return jnp.pad(cols, ((0, 0), (0, pad)))
@@ -220,10 +212,8 @@ def integrate_along_field(
 
     b = y0.shape[0]
 
-    # The iteration body works in ROW layout (D, B): (B, 3)-shaped
-    # minor-dim arrays cost several full lane-padded passes per op on
-    # TPU (benchmarks/RESULTS.md), and at ~30 ops per RK iteration that
-    # glue dominated the fused tracer.  Rows put the batch on lanes.
+    # The iteration body works in ROW layout (D, B): per-component
+    # rows keep the RK glue elementwise over the batch.
     def pad3(r_nd):
         """(ndim, B) rows -> (3, B) with zero-filled unused coords."""
         if ndim == 3:
@@ -276,153 +266,15 @@ def integrate_along_field(
     _vol_off = _cp_off + npc * 3
     _fv_off = _vol_off + 1
 
-    use_fused = pallas_trace.supported(grid, i_icell_mask, nvar)
-    from .utils.config import tiny_distance, walk_tolerances
+    from .utils.config import tiny_distance
 
     _tiny = tiny_distance(dtype)
-    # Same values locate.walk uses — the fused and generic tracer paths
-    # must agree on arrival/containment at faces
-    _nudge, _eps_arrive = walk_tolerances(dtype, grid.rmin, grid.rmax)
-
-    def _fused_stages(anchor, k1, dx, ic_start, act):
-        """Stages 2-4 of one RK iteration as a single stage-machine
-        round loop (ops/pallas_trace.py): each lane walks + interpolates
-        + advances through its stages independently; one row gather and
-        one kernel launch per round for the whole batch.
-
-        All vector inputs/outputs are ROW blocks: anchor (D, B), k1
-        (ndim, B).  Returns (k2, k3, k4, field4, rp_fail row blocks,
-        ic4 (B,), fail (B,), ic_fail (B,), n_rounds).
-
-        The round loop runs in TWO phases: full width while many lanes
-        walk, then — straggler rounds being the dominant cost (a few
-        lanes on long hop chains hold full-width gathers hostage for
-        ~2/3 of all rounds measured) — the still-walking lanes compact
-        into a batch/divisor buffer and the tail rounds run there.
-        Safe because a lane's walk-active flag is monotone within one
-        stage-machine call (arrival enters the next stage in the same
-        round), and compacted columns evolve deterministically, so
-        duplicated padding columns scatter back idempotently."""
-        from .ops.pallas_trace import (
-            F_ROWS, _FAIL, _FLD4, _IC, _ICF, _K2, _K3, _K4, _RPF, _WACT,
-        )
-
-        cfg = grid.config
-        tile = cfg.trace_tile
-        bp = -(-max(b, tile) // tile) * tile
-        m = -(-(bp // cfg.trace_compact_divisor) // tile) * tile
-        use_compact = (
-            bp >= cfg.trace_compact_min_batch and tile <= m < bp
-        )
-        thresh = m if use_compact else 0
-
-        r0 = pad3(anchor[:ndim])
-        tgt2 = clamp_axi(pad3(anchor[:ndim] + (0.5 * dx)[None, :] * k1))
-        delta = tgt2 - r0
-        total = jnp.sqrt(
-            delta[0] * delta[0] + delta[1] * delta[1]
-            + delta[2] * delta[2]
-        )
-        invt = jnp.where(total > _tiny, 1.0 / jnp.where(
-            total > _tiny, total, 1.0), 0.0)
-        u = delta * invt[None, :]
-
-        zeros = jnp.zeros((12, b), dtype)  # k2, k3, k4, field4
-        F = jnp.concatenate(
-            [
-                r0, tgt2, u, total[None, :],
-                pad3(k1), zeros,
-                r0,  # rp_fail (unused until a failure writes it)
-                r0, dx[None, :],
-            ],
-            axis=0,
-        )
-        assert F.shape[0] == F_ROWS
-        i32 = jnp.int32
-        ones = jnp.ones((1, b), i32)
-
-        I = jnp.concatenate(  # noqa: E741
-            [
-                jnp.maximum(ic_start, 0)[None, :].astype(i32),
-                -ones,  # prev
-                0 * ones,  # steps
-                act[None, :].astype(i32),
-                jnp.where(act, 2, 5)[None, :].astype(i32),
-                0 * ones,  # fail
-                -ones,  # ic_fail
-                0 * ones,
-            ],
-            axis=0,
-        )
-        if bp != b:
-            # zero pad keeps padded lanes inert (wact == 0)
-            F = jnp.pad(F, ((0, 0), (0, bp - b)))
-            I = jnp.pad(I, ((0, 0), (0, bp - b)))  # noqa: E741
-
-        walk_cap = grid.config.trace_walk_max_steps
-        round_cap = 3 * (walk_cap + 2) + 4
-
-        def round_once(F, I):  # noqa: E741
-            return pallas_trace.trace_round(
-                grid, trace_table, F, I,
-                nudge=_nudge, eps_arrive=_eps_arrive, tiny=_tiny,
-                reverse=reverse, axisymmetric=axisymmetric,
-                max_steps=walk_cap, min_radius=MIN_RADIUS, tile=tile,
-            )
-
-        def cond(carry):
-            F, I, n, n_act = carry  # noqa: E741
-            return (n_act > thresh) & (n < round_cap)
-
-        def rbody(carry):
-            F, I, n, _ = carry  # noqa: E741
-            F, I, n_act = round_once(F, I)  # noqa: E741
-            return F, I, n + 1, n_act
-
-        F, I, _nr, _ = lax.while_loop(  # noqa: E741
-            cond, rbody,
-            (F, I, jnp.array(0, jnp.int32),
-             jnp.sum(act, dtype=jnp.int32)),
-        )
-
-        if use_compact:
-            # Straggler phase: still-walking lanes fit m slots; run the
-            # remaining rounds at m width, scatter the state back.
-            wact = I[_WACT] != 0
-            idx = locate._compact_indices(wact, m)
-            Fc, Ic = F[:, idx], I[:, idx]
-
-            def cond2(carry):
-                Fc, Ic, n, n_act = carry
-                return (n_act > 0) & (n < round_cap)
-
-            def rbody2(carry):
-                Fc, Ic, n, _ = carry
-                Fc, Ic, n_act = round_once(Fc, Ic)
-                return Fc, Ic, n + 1, n_act
-
-            Fc, Ic, _nr, _ = lax.while_loop(
-                cond2, rbody2,
-                (Fc, Ic, _nr,
-                 jnp.sum(Ic[_WACT] != 0, dtype=jnp.int32)),
-            )
-            F = F.at[:, idx].set(Fc)  # noqa: E741
-            I = I.at[:, idx].set(Ic)  # noqa: E741
-        k2 = F[_K2 : _K2 + ndim, :b]
-        k3 = F[_K3 : _K3 + ndim, :b]
-        k4 = F[_K4 : _K4 + ndim, :b]
-        field4 = F[_FLD4 : _FLD4 + 3, :b]
-        rp_fail = F[_RPF : _RPF + 3, :b]
-        ic4 = I[_IC, :b]
-        fail = I[_FAIL, :b] != 0
-        ic_fail = I[_ICF, :b]
-        return k2, k3, k4, field4, ic4, fail, rp_fail, ic_fail, _nr
 
     def rk_stage(anchor, k_prev, coeff, r_start, ic_start, ok):
-        """One batched walk+interpolate sub-step (generic path; row
-        interface, column-major internally at the walk/interp
-        boundaries).  Lanes with ``ok`` False aim at their own start,
-        making the walk a degenerate no-op (tiny-distance short
+        """One batched walk+interpolate sub-step (row interface,
+        column-major internally at the walk/interp boundaries).  Lanes
+        with ``ok`` False aim at their own start, making the walk a
+        degenerate no-op (tiny-distance short
         circuit, :689-692).  The walk starts from the *previous
         sub-step's* end point and cell (the reference threads i_cell
         between sub-steps the same way, :1122-1150) — sub-step targets
@@ -500,7 +352,6 @@ def integrate_along_field(
         done=start_done,
         overflow=jnp.zeros(b, bool),
         boundary_material=start_bm,
-        n_rounds=jnp.int32(0),
     )
 
     # Buffer writes as one-hot selects over the step axis: a per-lane
@@ -574,53 +425,38 @@ def integrate_along_field(
         else:
             k1 = unitvec(field_a)
 
-        if use_fused:
-            # Stages 2-4 in one fused round loop (ops/pallas_trace.py)
-            (k2, k3, k4, field4, ic4, fail, r_p, ic_fail, nr) = (
-                _fused_stages(anchor, k1, dx, s.i_cell_prev, act)
-            )
-            ok = act & ~fail
-            failed = act & fail
-            # The fused path never runs with an icell mask
-            # (pallas_trace.supported), so a failure that ends INSIDE
-            # the domain can only be the walk step cap.
-            cap_fail = failed & (ic_fail >= 0)
-            k123 = (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
-            ys3 = anchor + dx[None, :] * k123
-        else:
-            nr = jnp.int32(0)
-            ok = act
-            _, _, k2, ic2, rp2, tgt2, f2, c2 = rk_stage(
-                anchor, k1, 0.5 * dx, r0, s.i_cell_prev, ok
-            )
-            ok = ok & ~f2
-            # Carry the sub-step end point/cell into the next walk (the
-            # reference's i_cell threading, :1122-1150); failed/done
-            # lanes keep the anchor start, which their degenerate walk
-            # ignores
-            start3 = jnp.where(ok[None, :], tgt2, r0)
-            ics3 = jnp.where(ok, ic2, s.i_cell_prev)
-            _, _, k3, ic3, rp3, tgt3, f3, c3 = rk_stage(
-                anchor, k2, 0.75 * dx, start3, ics3, ok
-            )
-            ok = ok & ~f3
-            # 3rd-order update + 4th sub-step at the updated point
-            # (:1144-1156)
-            k123 = (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
-            start4 = jnp.where(ok[None, :], tgt3, r0)
-            ics4 = jnp.where(ok, ic3, s.i_cell_prev)
-            ys3, field4, k4, ic4, rp4, _, f4, c4 = rk_stage(
-                anchor, k123, dx, start4, ics4, ok
-            )
-            ok = ok & ~f4
+        ok = act
+        _, _, k2, ic2, rp2, tgt2, f2, c2 = rk_stage(
+            anchor, k1, 0.5 * dx, r0, s.i_cell_prev, ok
+        )
+        ok = ok & ~f2
+        # Carry the sub-step end point/cell into the next walk (the
+        # reference's i_cell threading, :1122-1150); failed/done
+        # lanes keep the anchor start, which their degenerate walk
+        # ignores
+        start3 = jnp.where(ok[None, :], tgt2, r0)
+        ics3 = jnp.where(ok, ic2, s.i_cell_prev)
+        _, _, k3, ic3, rp3, tgt3, f3, c3 = rk_stage(
+            anchor, k2, 0.75 * dx, start3, ics3, ok
+        )
+        ok = ok & ~f3
+        # 3rd-order update + 4th sub-step at the updated point
+        # (:1144-1156)
+        k123 = (2.0 * k1 + 3.0 * k2 + 4.0 * k3) / 9.0
+        start4 = jnp.where(ok[None, :], tgt3, r0)
+        ics4 = jnp.where(ok, ic3, s.i_cell_prev)
+        ys3, field4, k4, ic4, rp4, _, f4, c4 = rk_stage(
+            anchor, k123, dx, start4, ics4, ok
+        )
+        ok = ok & ~f4
 
-            failed = act & ~ok
-            # First failing stage supplies (r_p, i_cell) for the shrink
-            r_p = jnp.where(
-                f2[None, :], rp2, jnp.where(f3[None, :], rp3, rp4)
-            )
-            ic_fail = jnp.where(f2, ic2, jnp.where(f3, ic3, ic4))
-            cap_fail = jnp.where(f2, c2, jnp.where(f3, c3, c4))
+        failed = act & ~ok
+        # First failing stage supplies (r_p, i_cell) for the shrink
+        r_p = jnp.where(
+            f2[None, :], rp2, jnp.where(f3[None, :], rp3, rp4)
+        )
+        ic_fail = jnp.where(f2, ic2, jnp.where(f3, ic3, ic4))
+        cap_fail = jnp.where(f2, c2, jnp.where(f3, c3, c4))
 
         # Embedded 2nd-order estimate and error norm (:1159-1163)
         y2nd = anchor + dx[None, :] * (
@@ -696,7 +532,6 @@ def integrate_along_field(
                 done=done,
                 overflow=s.overflow | overflow,
                 boundary_material=bm,
-                n_rounds=s.n_rounds + nr,
             ),
         )
 
@@ -712,7 +547,6 @@ def integrate_along_field(
         n_steps=n_steps,
         boundary_material=final.boundary_material.astype(jnp.int32),
         n_iterations=final.iteration,
-        n_rounds=final.n_rounds,
     )
 
 

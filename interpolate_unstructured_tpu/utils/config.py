@@ -22,10 +22,9 @@ class IUConfig:
     eps_inside: float = 1e-10
 
     # Meshes up to this many cells use the matmul brute-force locate
-    # (exact containment over all cells on the MXU); larger meshes use
-    # bin-seeded neighbor walks. Crossover measured on v5e: the K=3
-    # margins matmul is MXU-starved, so brute force loses to the walk
-    # above ~1k cells.
+    # (exact containment over all cells in one product); larger meshes
+    # use candidate bins and neighbor walks.  The crossover has not been
+    # re-measured on the H100.
     bruteforce_max_cells: int = 1024
 
     # Default step cap for the batched neighbor walk. The reference walks
@@ -39,19 +38,8 @@ class IUConfig:
     # invalid position: the step shrinks and retries (:1081-1097).
     trace_walk_max_steps: int = 128
 
-    # Fused tracer rounds (ops/pallas_trace.py): lane tile width, and
-    # straggler compaction — once the still-walking lane count fits
-    # batch/divisor, the round loop compacts those lanes into a small
-    # buffer so straggler rounds (a handful of lanes on long hop
-    # chains) stop paying full-batch gather + state traffic.  A lane's
-    # walk-active flag is monotone within one stage-machine call, so
-    # one compaction per RK iteration suffices.
-    trace_tile: int = 1024
-    trace_compact_divisor: int = 8
-    trace_compact_min_batch: int = 16384
-
     # Cold-start seed backend: "bins" = O(1) uniform-grid seed table
-    # (TPU default); "kdtree" = exact nearest-cell-center via the
+    # (the default); "kdtree" = exact nearest-cell-center via the
     # stackless batched kd-tree (kdtree2-equivalent seeding quality,
     # m_interp_unstructured.f90:272-288, at O(log n) gather cost).
     seed_mode: str = "bins"
@@ -68,9 +56,8 @@ class IUConfig:
     # a SINGLE row gather instead of a seeded multi-step walk (each walk
     # step is itself a full gather round).  Bins whose complete list
     # exceeds the row capacity fall back to a walk seeded at the best
-    # candidate.  Measured on v5e: a 1024-byte random row gather costs
-    # only ~1.3x a 512-byte one (benchmarks/micro_gather.py), so wide
-    # rows buy K=15 tet candidates nearly for free.
+    # candidate.  The row width (K=15 tet candidates at 1 KB) has not
+    # been re-tuned on the H100.
     use_candidate_bins: bool = True
     # 2 bins/cell (vs 1) cuts the mean per-bin candidate count 14 -> 9
     # and the overflow-probe rate 4.8% -> 2.2% on a ~1M-cell tet mesh,
@@ -84,9 +71,8 @@ class IUConfig:
     # and face offsets in the query bin's LOCAL frame at a per-row
     # scale — while interpolation comes from exact f32 per-cell value
     # PLANES (value = g . r_local + c, linear for simplices).  13 vs 21
-    # floats per tet candidate cuts the gathered row ~1.5-2x, and the
-    # random row gather is ~94% of the cold query cost
-    # (benchmarks/RESULTS.md).  The quantization fuzz (~h/2e4, grid
+    # floats per tet candidate cuts the gathered row ~1.5-2x.  The
+    # quantization fuzz (~h/2e4, grid
     # scalar cand_qeps) widens the inside tolerance: sub-fuzz boundary
     # verdicts may differ from the f32 planes, interior points never
     # (their true margin >= 0 keeps every containing cell in reach).
@@ -107,11 +93,9 @@ class IUConfig:
     # a row of at most this many bytes, K widens to that worst count
     # and the overflow machinery (extension table, miss compaction,
     # fallback probe) vanishes from the query path entirely — every
-    # miss is exact.  Random row gathers on v5e are per-row
-    # issue-bound, NOT bandwidth-bound (640 B and 1024 B rows cost the
-    # same ~10.5 ms/1M; benchmarks/RESULTS.md round 3), so doubling the
-    # row is nearly free while the fallback it deletes costs ~2-3
-    # ms/1M.  Set to 0 to disable (always use K from cand_row_bytes).
+    # miss is exact.  Wider rows trade gathered bytes for the deleted
+    # fallback; the trade has not been re-measured on the H100.  Set
+    # to 0 to disable (always use K from cand_row_bytes).
     cand_cover_row_bytes: int = 2048
     # Candidate-bin construction backend: "auto" runs the device
     # pipeline (ops/cand_build.py, ~50x the single-core host loop on
@@ -122,27 +106,20 @@ class IUConfig:
     cand_build_device_min_cells: int = 100_000
     # Fallback buffer: unresolved queries compact into
     # b / cand_fallback_divisor slots before the extension probe.  The
-    # probe/merge cost is width-driven (measured 26 ms/10M saved going
-    # 16 -> 32), so the buffer sits just above the measured ~2.2%
-    # overflow-miss rate; batches that overflow it take the chunked
-    # full-width path (slower, still correct).
+    # buffer sits just above the ~2.2% overflow-miss rate of uniform
+    # queries on a ~1M-cell tet mesh; batches that overflow it take the
+    # chunked full-width path (slower, still correct).
     cand_fallback_divisor: int = 32
-    # Candidate-phase query tiling.  Two effects set the sweet spot:
-    # the gathered rows materialize row_bytes per query (a 10M-query
-    # batch at 1KB rows would need 10 GB of HBM unchunked), and — the
-    # dominant one, measured on v5e round 3 — a chunk whose gathered
-    # buffer fits VMEM (64k rows x 1KB = 64 MB vs the 128 MB v5e VMEM)
-    # skips the HBM round-trip between XLA's gather and the Pallas
-    # candidate kernel: 17.3 -> 14.0 ms/1M end-to-end.  128k-row chunks
-    # (128 MB, no VMEM headroom left) lose the entire win; the benefit
-    # survives the sequential lax.map path used above 32 chunks.
-    # The chunk is therefore sized in gathered BYTES and divided by the
-    # grid's physical row width at query time (locate._cand_chunk):
-    # 1 KB rows -> 64k queries, 2 KB cover rows -> 32k.
+    # Candidate-phase query tiling for the XLA probe: its gathered rows
+    # materialize row_bytes per query (a 10M-query batch at 1KB rows
+    # would need 10 GB unchunked).  The chunk is sized in gathered
+    # BYTES and divided by the grid's physical row width at query time
+    # (locate._cand_chunk): 1 KB rows -> 64k queries, 2 KB cover rows
+    # -> 32k.  Not re-tuned on the H100.  The GPU kernel
+    # (ops/pallas_cand.py) gathers nothing and ignores it.
     cand_chunk_bytes: int = 64 << 20
     # Explicit per-chunk query count; None derives it from
-    # cand_chunk_bytes (the default, keeps the VMEM-resident regime
-    # across row widths).
+    # cand_chunk_bytes.
     cand_chunk_queries: int | None = None
 
     # Two-phase walk: run phase1 steps on the full batch, then compact
@@ -151,10 +128,6 @@ class IUConfig:
     walk_phase1_steps: int = 2
     walk_compact_divisor: int = 8
     walk_compact_min_batch: int = 1 << 16
-
-    # Use the fused Pallas kernel for eligible brute-force queries
-    # (float32, mesh small enough for VMEM-resident tables)
-    use_pallas: bool = True
 
     # After building the grid, relocate every bin center with the walk
     # itself and reseed the bin table with the *containing* cell
@@ -221,10 +194,9 @@ def walk_tolerances(dtype, rmin, rmax):
     their cell, where the unsigned-area kernels lose linearity
     (reflection at the face, m_interp_unstructured.f90:542-549).
 
-    One definition on purpose: the generic walk (ops/locate.py) and the
-    fused tracer (trace.py -> ops/pallas_trace.py) must agree on
-    arrival/containment at faces or the two paths diverge exactly at
-    the livelock-prone boundaries these constants exist for.
+    One definition on purpose: every walk consumer (ops/locate.py and
+    the tracer's sub-step walks in trace.py) must agree on
+    arrival/containment at faces.
     """
     import jax.numpy as jnp
 

@@ -13,10 +13,11 @@ package.  It backs
   reference; pure-numpy walks understate compiled serial code).
 
 The shared library is compiled on first use with ``g++ -O3`` into
-``/tmp/iu_serial_oracle/`` keyed by a source hash, so a source edit
-triggers exactly one rebuild.  Everything degrades gracefully: if no
-C++ toolchain is present, :func:`available` returns False and callers
-skip (tests mark themselves skipped, bench omits the field).
+``build/serial_oracle/`` at the repository root (listed in
+.gitignore), keyed by a source hash, so a source edit triggers exactly
+one rebuild.  If no C++ toolchain is present, :func:`available`
+returns False (tests mark themselves skipped), and :func:`serial_query`
+/ :func:`serial_trace` raise with the compiler's message.
 """
 
 from __future__ import annotations
@@ -32,15 +33,18 @@ _SRC = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "native",
     "serial_oracle.cc",
 )
-_CACHE_DIR = "/tmp/iu_serial_oracle"
+_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "build",
+    "serial_oracle",
+)
 _lib = None
 _build_error = None
 
 
 def _machine_tag() -> str:
     """ISA component for the .so cache key: -march=native binaries are
-    CPU-specific, so a container/CPU change must miss the cache (the same
-    stale-artifact trap CLAUDE.md documents for /tmp/jax_cache)."""
+    CPU-specific, so a checkout copied to another CPU must miss the
+    cache."""
     import platform
     parts = [platform.machine()]
     try:
@@ -77,7 +81,10 @@ def _load():
         return _lib
     try:
         lib = ctypes.CDLL(_build())
-    except (OSError, subprocess.CalledProcessError, FileNotFoundError) as e:
+    except subprocess.CalledProcessError as e:
+        _build_error = RuntimeError(f"g++ failed: {e.stderr.strip()}")
+        return None
+    except OSError as e:
         _build_error = e
         return None
     f = lib.iu_serial_query

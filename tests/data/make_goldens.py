@@ -27,6 +27,7 @@ Run from the repo root (regenerates the committed file):
 import os
 import shutil
 import sys
+import tempfile
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 
@@ -44,13 +45,15 @@ sys.path.insert(0, REPO)
 import interpolate_unstructured_tpu as iu  # noqa: E402
 from interpolate_unstructured_tpu.trace import integrate_along_field  # noqa: E402
 
-REFERENCE_DATA = "/root/reference/test_data"
+DATA_DIR = os.path.dirname(os.path.abspath(__file__))
 N_POINTS = 100
 SEED = 20260817
 
 
 def load(tmp, name):
-    shutil.copy(os.path.join(REFERENCE_DATA, name), os.path.join(tmp, name))
+    """Read a bundled fixture (tests/data/make_fixtures.py) from a
+    scratch copy: reading converts to .binda next to the input."""
+    shutil.copy(os.path.join(DATA_DIR, name), os.path.join(tmp, name))
     return iu.read_grid(os.path.join(tmp, name))
 
 
@@ -71,8 +74,7 @@ def golden_points(grid, tag, out):
 
 
 def main():
-    tmp = "/tmp/golden_gen"
-    os.makedirs(tmp, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="golden_gen")
     out = {}
 
     tri = load(tmp, "triangle.vtu")

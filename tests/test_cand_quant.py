@@ -7,7 +7,7 @@ bin's local frame plus exact f32 value planes
 * cell/found agreement with the legacy f32 row layout away from faces
   (within the quantization fuzz band verdicts may legitimately differ),
 * linear exactness of the value planes,
-* the Pallas kernel (interpret mode) against the XLA tile,
+* the GPU Pallas kernel (interpret mode) against the XLA tile,
 * the overflow-extension path on a no-cover build,
 * that f64 grids and quads keep the legacy layout.
 """
@@ -108,8 +108,8 @@ def test_pallas_interpret_matches_xla_tile():
     eps = gq.config.eps_inside + gq.cand_qeps
 
     id_p, aux_p, vals_p = pallas_cand.cand_rows_query(
-        gq, gq.cand_table, idx, rl_t, (0,), ccol, eps, k, k_max=k,
-        interpret=True, quantized=True, nv_fused=nv,
+        gq, gq.cand_table, idx, rl_t, (0,), ccol, eps, k, k, nv,
+        interpret=True,
     )
     id_x, aux_x, vals_x = locate._probe_rows_xla(
         gq, gq.cand_table[idx], rl_t, k, ccol, (0,), eps, k,

@@ -9,6 +9,7 @@ are written to be self-contained and small enough for CPU.
 
 import os
 import runpy
+import sys
 
 import pytest
 
@@ -30,6 +31,7 @@ def test_examples_discovered():
 def test_example_runs(example, tmp_path, monkeypatch):
     # Any files an example writes (VTK exports etc.) land in tmp_path.
     monkeypatch.chdir(tmp_path)
-    runpy.run_path(
-        os.path.join(EXAMPLES_DIR, example), run_name="__main__"
-    )
+    path = os.path.join(EXAMPLES_DIR, example)
+    # run as from the command line, with no arguments
+    monkeypatch.setattr(sys, "argv", [path])
+    runpy.run_path(path, run_name="__main__")

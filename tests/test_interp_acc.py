@@ -1,7 +1,7 @@
 """Accurate-mode (compensated f32) interpolation tests.
 
 The contract being bridged: the reference meets <=1e-12 vs float64
-(test_triangle.f90:42-48) while the TPU fast path is float32.  The
+(test_triangle.f90:42-48) while the fast path is float32.  The
 df32 mode must reproduce the float64 interpolation — SAME cells, SAME
 weight formulas — to ~1e-12 from float32 storage and arithmetic.
 
@@ -9,12 +9,13 @@ Meshes are scaled by pi so coordinates (and the random float64 data)
 genuinely need the stored (hi, lo) residual split.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import interpolate_unstructured_tpu as iu
-from tests.conftest import sample_points
+from conftest import sample_points
 
 SCALE = np.pi
 N = 1000
@@ -225,16 +226,12 @@ def test_acc_host_f64_split_without_x64(test_data_dir):
 
 
 @pytest.mark.parametrize("mesh", ["triangle.vtu", "quad.vtu", "tetra.vtu"])
-def test_pallas_acc_kernel_matches_f64(test_data_dir, mesh):
-    """The fused Pallas df32 kernel (interpret mode on CPU) must hit
-    the same ~1e-12 accuracy vs the f64 reference as the XLA tile.
-
-    NOT a bit-parity test against the XLA tile: XLA contracts mul+add
-    into FMA when it compiles a fused graph, which (harmlessly —
-    FMA residuals are exact) perturbs the df32 lo terms at ~2^-48, so
-    eager and jitted evaluations of the same df32 code differ by an
-    ulp.  Truth is the f64 interpolation at the same cells."""
-    from interpolate_unstructured_tpu.ops import interp_acc, locate, pallas_acc
+def test_acc_tile_matches_f64(test_data_dir, mesh):
+    """The df32 tile must hit ~1e-12 accuracy vs the f64 reference at
+    the same cells, under jit: XLA contracts mul+add into FMA when it
+    compiles a fused graph, which the df32 transforms must survive
+    (ops/df32.py).  Truth is the f64 interpolation at the same cells."""
+    from interpolate_unstructured_tpu.ops import interp_acc, locate
 
     g32, g64, ivar = _f32_and_f64_grids(test_data_dir, mesh, 21)
     rng = np.random.default_rng(22)
@@ -250,20 +247,12 @@ def test_pallas_acc_kernel_matches_f64(test_data_dir, mesh):
         )
     )[:, 0]
     scale = max(1.0, np.abs(truth[np.asarray(found)]).max())
-
-    rows = g32.acc_table[ic]
-    vh_p, vl_p = pallas_acc.interp_acc_rows(
-        rows, r_hi.T, r_lo.T,
-        cell_type=g32.cell_type, npc=g32.n_points_per_cell,
-        nv=g32.n_point_data, i_vars=(ivar,), interpret=True,
-    )
-    got = np.asarray(vh_p[0], np.float64) + np.asarray(vl_p[0], np.float64)
     f = np.asarray(found)
-    err_kernel = np.abs(got[f] - truth[f]).max() / scale
-    assert err_kernel < 2e-12, f"pallas df32 kernel drifted: {err_kernel}"
 
-    # the XLA tile meets the same bound on the same queries
-    vh_x, vl_x = interp_acc._interp_acc_tile(g32, r_hi, (ivar,), ic, r_lo)
+    tile = jax.jit(
+        lambda g, rh, c, rl: interp_acc._interp_acc_tile(g, rh, (ivar,), c, rl)
+    )
+    vh_x, vl_x = tile(g32, r_hi, ic, r_lo)
     got_x = np.asarray(vh_x[:, 0], np.float64) + np.asarray(
         vl_x[:, 0], np.float64
     )

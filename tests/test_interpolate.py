@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 import interpolate_unstructured_tpu as iu
-from tests.conftest import sample_points
+from conftest import sample_points
 
 THRESHOLD = 1e-14
 N_SAMPLES = 1000

@@ -1,5 +1,7 @@
 """IO layer tests: binda round-trip, VTU parsing, converter parity."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -9,6 +11,8 @@ from interpolate_unstructured_tpu.io.convert import (
     get_cell_neighbors,
 )
 from interpolate_unstructured_tpu.io.vtu import read_vtu
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 def test_binda_roundtrip(tmp_path):
@@ -87,7 +91,7 @@ def test_binda_header_layout(tmp_path):
 
 
 def test_read_vtu_appended_raw():
-    m = read_vtu("/root/reference/test_data/triangle.vtu")
+    m = read_vtu(DATA + "/triangle.vtu")
     assert m.points.shape == (9, 3)
     assert len(m.cells) == 1
     assert m.cells[0].type == "triangle"
@@ -99,8 +103,41 @@ def test_read_vtu_appended_raw():
     )
 
 
-def test_read_vtu_ascii():
-    m = read_vtu("/root/reference/test_data/quad.vtu")
+def _ascii_vtu(m):
+    """The mesh ``m`` (one cell block) as an ASCII-format VTU file."""
+    vtk_id = {"triangle": 5, "quad": 9, "tetra": 10}[m.cells[0].type]
+    conn = m.cells[0].data
+    npc = conn.shape[1]
+
+    def arr(values, dtype, name="", ncomp=1):
+        text = " ".join(repr(float(v)) if dtype.startswith("Float")
+                        else str(int(v)) for v in np.ravel(values))
+        return (f'<DataArray type="{dtype}"'
+                + (f' Name="{name}"' if name else "")
+                + f' NumberOfComponents="{ncomp}" format="ascii">'
+                + text + "</DataArray>")
+
+    point_data = "".join(
+        arr(v, "Float64", k) for k, v in m.point_data.items()
+    )
+    return (
+        '<?xml version="1.0"?><VTKFile type="UnstructuredGrid" '
+        'version="0.1" byte_order="LittleEndian"><UnstructuredGrid>'
+        f'<Piece NumberOfPoints="{len(m.points)}" '
+        f'NumberOfCells="{len(conn)}">'
+        f"<Points>{arr(m.points, 'Float64', ncomp=3)}</Points><Cells>"
+        + arr(conn, "Int32", "connectivity")
+        + arr(np.arange(1, len(conn) + 1) * npc, "Int32", "offsets")
+        + arr(np.full(len(conn), vtk_id), "UInt8", "types")
+        + f"</Cells><PointData>{point_data}</PointData></Piece>"
+        "</UnstructuredGrid></VTKFile>"
+    )
+
+
+def test_read_vtu_ascii(tmp_path):
+    """quad.vtu and tetra.vtu (appended raw) re-encoded as ASCII VTU
+    read back identically."""
+    m = read_vtu(DATA + "/quad.vtu")
     assert m.cells[0].type == "quad"
     assert m.cells[0].data.shape == (4, 4)
     assert m.points.shape == (9, 3)
@@ -108,10 +145,21 @@ def test_read_vtu_ascii():
         m.point_data["Polynomial"], m.points.sum(axis=1) + 1, atol=1e-12
     )
 
-    m = read_vtu("/root/reference/test_data/tetra.vtu")
-    assert m.cells[0].type == "tetra"
-    assert m.cells[0].data.shape == (96, 4)
-    assert m.points.shape == (35, 3)
+    t = read_vtu(DATA + "/tetra.vtu")
+    assert t.cells[0].type == "tetra"
+    assert t.cells[0].data.shape == (48, 4)
+    assert t.points.shape == (27, 3)
+
+    for name, raw in (("quad", m), ("tetra", t)):
+        fn = tmp_path / f"{name}_ascii.vtu"
+        fn.write_text(_ascii_vtu(raw))
+        a = read_vtu(fn)
+        assert a.cells[0].type == raw.cells[0].type
+        np.testing.assert_array_equal(a.cells[0].data, raw.cells[0].data)
+        np.testing.assert_array_equal(a.points, raw.points)
+        assert set(a.point_data) == set(raw.point_data)
+        for k, v in raw.point_data.items():
+            np.testing.assert_array_equal(a.point_data[k], v)
 
 
 def test_neighbors_two_triangles():
@@ -150,7 +198,7 @@ def test_neighbors_tetra_face_convention():
 
 
 def test_neighbors_match_reference_on_fixture():
-    m = read_vtu("/root/reference/test_data/tetra.vtu")
+    m = read_vtu(DATA + "/tetra.vtu")
     nb = get_cell_neighbors(m.cells[0].data, m.points, 3)
     # Every internal face is shared by exactly 2 cells; adjacency must be
     # symmetric: if nb[c,k] == d then some face of d points back at c.
@@ -166,7 +214,7 @@ def test_convert_to_binda_caching(tmp_path):
     import shutil
 
     src = tmp_path / "triangle.vtu"
-    shutil.copy("/root/reference/test_data/triangle.vtu", src)
+    shutil.copy(DATA + "/triangle.vtu", src)
     out = convert_to_binda(src)
     assert out.endswith(".binda")
     mtime1 = __import__("os").path.getmtime(out)

@@ -7,7 +7,7 @@ import pytest
 
 import interpolate_unstructured_tpu as iu
 from interpolate_unstructured_tpu.parallel import sharding
-from tests.conftest import sample_points
+from conftest import sample_points
 
 
 @pytest.fixture(scope="module")
